@@ -1,0 +1,7 @@
+"""Command registry (``gossamer_tpu/cmds/__init__.py``); build-graph only."""
+
+
+def all_goss_commands():
+    from .basic import COMMANDS
+
+    return list(COMMANDS)

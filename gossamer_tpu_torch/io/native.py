@@ -1,0 +1,184 @@
+"""ctypes binding for the native IO library (``native/gossio.cpp``).
+
+Counterpart of ``gossamer_tpu/io/native.py``, narrowed to what
+``goss build-graph`` runs: the packed chunk reader, the symmetric
+expansion and the spill codec.  The library is compiled at first use
+from the checkout's ``native/gossio.cpp`` with the flags of
+``native/Makefile`` into ``gossamer_tpu_torch/_build/``, so it is always
+built for the machine that loads it.  A checked-in ``native/libgossio.so``
+is never loaded and ``native/`` is never written.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+from typing import Iterator
+
+import numpy as np
+
+_ROOT = Path(__file__).resolve().parents[2]
+_SRC = _ROOT / "native" / "gossio.cpp"
+BUILD_DIR = Path(__file__).resolve().parents[1] / "_build"
+# native/Makefile: CXXFLAGS and LDFLAGS
+CXX_FLAGS = ["-O3", "-march=native", "-std=c++17", "-fPIC", "-Wall"]
+LD_FLAGS = ["-shared", "-lz", "-lpthread"]
+
+FMT_CODE = {None: 0, "fasta": 1, "fastq": 2, "line": 3}
+
+
+class NativeUnavailable(RuntimeError):
+    """The native library could not be built or loaded."""
+
+
+def build_library() -> tuple[Path, float]:
+    """Compile ``libgossio.so`` when missing or older than its source.
+    Returns (path, build seconds); seconds is 0.0 when it was current."""
+    so = BUILD_DIR / "libgossio.so"
+    if not _SRC.exists():
+        raise NativeUnavailable(f"native source missing: {_SRC}")
+    if so.exists() and so.stat().st_mtime >= _SRC.stat().st_mtime:
+        return so, 0.0
+    cxx = shutil.which("g++")
+    if cxx is None:
+        raise NativeUnavailable("no C++ compiler to build libgossio.so")
+    BUILD_DIR.mkdir(exist_ok=True)
+    tmp = BUILD_DIR / f"libgossio.so.{os.getpid()}.tmp"
+    t0 = time.perf_counter()
+    proc = subprocess.run([cxx, *CXX_FLAGS, str(_SRC), "-o", str(tmp),
+                           *LD_FLAGS], capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise NativeUnavailable(f"building libgossio.so failed:\n{proc.stderr}")
+    os.replace(tmp, so)
+    return so, time.perf_counter() - t0
+
+
+@functools.cache
+def _load() -> ctypes.CDLL | NativeUnavailable:
+    try:
+        so, _ = build_library()
+        lib = ctypes.CDLL(str(so))
+    except (NativeUnavailable, OSError) as e:
+        return e if isinstance(e, NativeUnavailable) else NativeUnavailable(str(e))
+    u8p = ctypes.POINTER(ctypes.c_uint8)
+    u32p = ctypes.POINTER(ctypes.c_uint32)
+    u64p = ctypes.POINTER(ctypes.c_uint64)
+    i64p = ctypes.POINTER(ctypes.c_int64)
+    lib.gossio_open.restype = ctypes.c_void_p
+    lib.gossio_open.argtypes = [ctypes.POINTER(ctypes.c_char_p), ctypes.c_int,
+                                ctypes.c_int, ctypes.c_int]
+    lib.gossio_next_packed.restype = ctypes.c_long
+    lib.gossio_next_packed.argtypes = [ctypes.c_void_p, u32p, u8p,
+                                       ctypes.c_long, ctypes.c_int]
+    lib.gossio_close.restype = None
+    lib.gossio_close.argtypes = [ctypes.c_void_p]
+    lib.gossio_eac_encode.restype = ctypes.c_long
+    lib.gossio_eac_encode.argtypes = [ctypes.c_long, u64p, i64p, u8p]
+    lib.gossio_eac_decode.restype = ctypes.c_long
+    lib.gossio_eac_decode.argtypes = [u8p, ctypes.c_long, ctypes.c_long,
+                                      u64p, i64p]
+    lib.gossio_expand_symmetric.restype = ctypes.c_long
+    lib.gossio_expand_symmetric.argtypes = [ctypes.c_long, u64p, i64p,
+                                            ctypes.c_int, u64p, i64p]
+    return lib
+
+
+def load_library() -> ctypes.CDLL:
+    """The loaded library; raises :class:`NativeUnavailable` otherwise."""
+    lib = _load()
+    if isinstance(lib, NativeUnavailable):
+        raise NativeUnavailable(str(lib))
+    return lib
+
+
+def _ptr(a: np.ndarray, ctype):
+    return a.ctypes.data_as(ctypes.POINTER(ctype))
+
+
+def encode_spill_run(lo: np.ndarray, c: np.ndarray) -> np.ndarray:
+    """(ascending u64 keys, i64 counts) -> varint-delta bytes, the
+    reference's spill-format design (``src/EdgeAndCount.hh:78-112``)."""
+    lib = load_library()
+    n = len(lo)
+    lo = np.ascontiguousarray(lo, dtype=np.uint64)
+    c = np.ascontiguousarray(c, dtype=np.int64)
+    out = np.empty(20 * max(n, 1), np.uint8)
+    m = lib.gossio_eac_encode(n, _ptr(lo, ctypes.c_uint64),
+                              _ptr(c, ctypes.c_int64), _ptr(out, ctypes.c_uint8))
+    return out[:m].copy()
+
+
+def decode_spill_run(buf: np.ndarray, n: int):
+    """Inverse of :func:`encode_spill_run` -> (lo u64, c i64)."""
+    lib = load_library()
+    buf = np.ascontiguousarray(buf, dtype=np.uint8)
+    lo = np.empty(n, np.uint64)
+    c = np.empty(n, np.int64)
+    got = lib.gossio_eac_decode(_ptr(buf, ctypes.c_uint8), len(buf), n,
+                                _ptr(lo, ctypes.c_uint64),
+                                _ptr(c, ctypes.c_int64))
+    if got != n:
+        raise ValueError("truncated spill run")
+    return lo, c
+
+
+def native_expand_symmetric(lo: np.ndarray, c: np.ndarray, rho: int):
+    """Canonical spectrum -> symmetric fwd+rc spectrum via the C
+    single-pass rc + radix sort + merge.  ``lo`` ascending uint64
+    (< 2^62), ``c`` int64."""
+    lib = load_library()
+    n = len(lo)
+    lo = np.ascontiguousarray(lo, dtype=np.uint64)
+    c = np.ascontiguousarray(c, dtype=np.int64)
+    out_lo = np.empty(2 * n, np.uint64)
+    out_c = np.empty(2 * n, np.int64)
+    m = lib.gossio_expand_symmetric(n, _ptr(lo, ctypes.c_uint64),
+                                    _ptr(c, ctypes.c_int64), rho,
+                                    _ptr(out_lo, ctypes.c_uint64),
+                                    _ptr(out_c, ctypes.c_int64))
+    return out_lo[:m], out_c[:m]
+
+
+def native_packed_chunks(
+    paths: list[str], k: int, chunk: int = 1 << 22, fmt: str | None = None,
+    threads: int = 1,
+) -> Iterator[tuple[np.ndarray, np.ndarray]]:
+    """Yield ``(words, inval)`` packed chunks (see ``io.stream.pack_chunk``)
+    straight from the native reader.  Requires ``chunk % 16 == 0`` and
+    ``k <= 33``; ``threads`` parser threads decode whole files
+    concurrently, so chunks of different files may interleave (fine for
+    counting).  Raises :class:`NativeUnavailable` before reading anything
+    when the library is missing."""
+    lib = load_library()
+    if chunk % 16 or k > 33:
+        raise ValueError(f"packed chunks need chunk % 16 == 0 and k <= 33 "
+                         f"(chunk={chunk}, k={k})")
+    return _packed_chunks(lib, paths, k, chunk, fmt, threads)
+
+
+def _packed_chunks(lib, paths, k, chunk, fmt, threads):
+    arr = (ctypes.c_char_p * len(paths))(*[p.encode() for p in paths])
+    handle = lib.gossio_open(arr, len(paths), FMT_CODE.get(fmt, 0),
+                             max(int(threads), 1))
+    overlap = k - 1
+    n_words = chunk // 16 + 2
+    n_inval = (chunk + overlap + 7) // 8
+    try:
+        while True:
+            words = np.empty(n_words, dtype=np.uint32)
+            inval = np.empty(n_inval, dtype=np.uint8)
+            n = lib.gossio_next_packed(handle, _ptr(words, ctypes.c_uint32),
+                                       _ptr(inval, ctypes.c_uint8), chunk,
+                                       overlap)
+            if n < 0:
+                raise RuntimeError("gossio_next_packed: bad geometry")
+            if n == 0:
+                break
+            yield words, inval
+    finally:
+        lib.gossio_close(handle)

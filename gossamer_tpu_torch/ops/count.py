@@ -1,0 +1,151 @@
+"""K-mer counting drivers: route packed chunk streams into the engine.
+
+Counterpart of ``gossamer_tpu/ops/count.py`` for narrow keys on one
+device.  Both readers feed one input format: the native reader yields
+packed chunks, and the Python reader's flat code chunks are packed with
+``io.stream.pack_chunk``.  Wide keys (rho > 31), canonical (build-kmer-set)
+counting and several devices are not ported yet and raise
+``NotImplementedError``.
+"""
+
+from __future__ import annotations
+
+import json
+import time
+from typing import Iterable
+
+import numpy as np
+import torch
+
+from ..io.readers import Read
+from ..io.stream import flat_code_chunks, pack_chunk
+from ..utils import profile
+from .engine import SpectrumEngine, narrow_keys
+
+U64 = np.uint64
+
+
+def _expand_symmetric(lo: np.ndarray, c: np.ndarray, rho: int):
+    """Canonical classes -> symmetric edge spectrum (both orientations).
+
+    Palindromic rho-mers (x == rc(x)) appear once with doubled count,
+    matching the reference's fwd+rc insertion semantics
+    (``src/ReverseComplementAdapter.hh``).
+    """
+    from ..core import kmer as K
+    from ..io.native import NativeUnavailable, native_expand_symmetric
+
+    try:
+        out_lo, out_c = native_expand_symmetric(lo, c.astype(np.int64), rho)
+        return out_lo, np.zeros_like(out_lo), out_c
+    except NativeUnavailable:
+        pass
+    hi = np.zeros_like(lo)
+    rlo, _rhi = K.reverse_complement(lo, hi, rho)
+    pal = rlo == lo
+    out_lo = np.concatenate([lo, rlo[~pal]])
+    out_c = np.concatenate([np.where(pal, c * 2, c), c[~pal]])
+    order = np.argsort(out_lo, kind="stable")
+    out_lo = out_lo[order]
+    out_c = out_c[order]
+    return out_lo, np.zeros_like(out_lo), out_c
+
+
+def _check_supported(rho: int, canonical: bool, n_devices: int) -> None:
+    if n_devices != 1:
+        raise NotImplementedError("counting across several devices is not "
+                                  "ported yet")
+    if not narrow_keys(rho):
+        raise NotImplementedError(f"wide keys (rho={rho} > 31) are not "
+                                  f"ported yet")
+    if canonical:
+        raise NotImplementedError("canonical counting (build-kmer-set, FNV "
+                                  "order) is not ported yet")
+
+
+def count_chunks(
+    packed_chunks,
+    rho: int,
+    *,
+    both_strands: bool,
+    canonical: bool,
+    device: torch.device,
+    chunk: int,
+    cap_entries: int | None = None,
+    progress=None,
+    log=None,
+    n_devices: int = 1,
+    fold: bool = True,
+):
+    """Count over ``(words, inval)`` packed chunks of ``chunk`` windows
+    -> sorted (lo, hi, counts) host arrays.
+
+    ``both_strands`` counts every window and its reverse complement
+    (build-graph semantics): canonical classes are counted at half the
+    lane volume and expanded to both orientations at the end.  ``fold``
+    selects the merge-fold kernel or its plain version (engine argument).
+    """
+    _check_supported(rho, canonical, n_devices)
+    if chunk <= 0 or chunk % 16:
+        raise ValueError(f"packed chunks need a chunk size divisible by 16 "
+                         f"(got {chunk})")
+    on_spill = None
+    if log is not None:
+        on_spill = lambda i, n: log(  # noqa: E731
+            "info", f"spill {i}: {n:,} distinct keys -> host RAM run")
+    mode = "value" if both_strands else "plain"
+    eng = None
+    n_chunks = 0
+    t0 = time.perf_counter()
+    for words, inval in packed_chunks:
+        if eng is None:
+            cap = cap_entries or min(1 << 25, max(1 << 16, 4 * chunk))
+            eng = SpectrumEngine(rho, mode, chunk, device, cap=cap,
+                                 on_spill=on_spill, fold=fold)
+        with profile.context("count/add_chunk"):
+            eng.add_chunk_packed(np.asarray(words), np.asarray(inval))
+        n_chunks += 1
+        if progress is not None:
+            progress(n_chunks * chunk)
+    if eng is None:
+        z = np.zeros(0, dtype=U64)
+        return z, z.copy(), np.zeros(0, dtype=np.int64)
+    stream = time.perf_counter() - t0
+    with profile.context("count/finish"):
+        out = eng.finish_expanded() if both_strands else eng.finish()
+    if log is not None:
+        phases = {"stream": stream, **eng.phases}
+        log("info", f"count: {n_chunks} chunks, {eng.spills} spills, "
+                    f"phases (s) {json.dumps(phases)}")
+    return out
+
+
+def count_rho_mers(reads: Iterable[Read], rho: int, *, chunk: int = 1 << 22,
+                   **kw):
+    """Count rho-mers of a read stream (Python reader; chunks packed with
+    ``pack_chunk``) -> sorted (lo, hi, counts) host arrays."""
+    packed = (pack_chunk(codes, rho, chunk)
+              for codes in flat_code_chunks(reads, rho, chunk=chunk))
+    return count_chunks(packed, rho, chunk=chunk, **kw)
+
+
+def count_rho_mers_files(paths: list[str], rho: int, *, chunk: int = 1 << 22,
+                         fmt: str | None = None, threads: int = 1, log=None,
+                         **kw):
+    """Count straight from files through the native reader; only when the
+    native library is unavailable, through the Python parser chain."""
+    from ..io.native import NativeUnavailable, native_packed_chunks
+    from ..io.readers import read_files
+
+    _check_supported(rho, kw.get("canonical", False), kw.get("n_devices", 1))
+    try:
+        chunks = native_packed_chunks(paths, rho, chunk=chunk, fmt=fmt,
+                                      threads=threads)
+    except NativeUnavailable as e:
+        if log is not None:
+            log("warning", f"reader: python (native library unavailable: {e})")
+        return count_rho_mers(read_files(paths), rho, chunk=chunk, log=log,
+                              **kw)
+    if log is not None:
+        log("info", "reader: native")
+    return count_chunks(chunks, rho, chunk=chunk, log=log, **kw)

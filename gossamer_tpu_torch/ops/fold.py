@@ -1,0 +1,174 @@
+"""Merge-fold of sorted key runs: the Hopper kernel and its plain version.
+
+Counterpart of ``gossamer_tpu/ops/pallas_fold.py`` ``merge_fold_planes``.
+:func:`merge_fold` merges the packed spectrum A with the sorted batch B,
+sums the counts of equal keys mod 2^32, and packs the distinct
+non-sentinel keys ascending into ``cap`` lanes.
+
+* CUDA tensors launch ``csrc/fold.cu``, which replaces the Pallas kernel
+  ``pallas_fold._fold_kernel``.  It is bound by device-memory bytes:
+  about three passes over (nA + nB) x 16 B (A and B read twice, the
+  output written once), with no carry between blocks (see the source).
+* CPU tensors take :func:`merge_fold_reference`, the plain PyTorch
+  version (the logic of ``engine._sort_count_compact``).
+
+The kernel library is built with ``nvcc`` into ``gossamer_tpu_torch/_build``
+at first use and bound with ctypes.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+
+import torch
+
+SENT = (1 << 63) - 1  # sentinel key; above every narrow key (< 2^62)
+M32 = 0xFFFFFFFF
+
+_PKG = Path(__file__).resolve().parents[1]
+_SRC = _PKG / "csrc" / "fold.cu"
+BUILD_DIR = _PKG / "_build"
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+
+
+def build_kernel_library() -> tuple[Path, float, str]:
+    """Compile ``csrc/fold.cu`` -> ``_build/libgossfold.so`` when missing or
+    older than its source.  Returns (path, build seconds, compiler output);
+    seconds is 0.0 when the library was already current."""
+    so = BUILD_DIR / "libgossfold.so"
+    if so.exists() and so.stat().st_mtime >= _SRC.stat().st_mtime:
+        return so, 0.0, ""
+    BUILD_DIR.mkdir(exist_ok=True)
+    tmp = BUILD_DIR / f"libgossfold.so.{os.getpid()}.tmp"
+    t0 = time.perf_counter()
+    nvcc = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
+    proc = subprocess.run([nvcc, *NVCC_FLAGS, "-o", str(tmp), str(_SRC)],
+                          capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed on {_SRC.name}:\n{proc.stderr}")
+    os.replace(tmp, so)
+    return so, time.perf_counter() - t0, proc.stderr
+
+
+@functools.cache
+def _kernel_lib() -> ctypes.CDLL:
+    so, _, _ = build_kernel_library()
+    lib = ctypes.CDLL(str(so))
+    vp, ll = ctypes.c_void_p, ctypes.c_longlong
+    lib.gossamer_merge_fold.restype = ctypes.c_int
+    lib.gossamer_merge_fold.argtypes = [ctypes.c_int, vp, vp, ll, vp, vp, ll,
+                                        ll, vp, vp, vp, vp, vp, vp, vp]
+    lib.gossamer_fold_tile.restype = ctypes.c_int
+    lib.gossamer_fold_tile.argtypes = []
+    lib.gossamer_cuda_error_string.restype = ctypes.c_char_p
+    lib.gossamer_cuda_error_string.argtypes = [ctypes.c_int]
+    return lib
+
+
+def _is_sorted(x: torch.Tensor) -> torch.Tensor:
+    """0-d bool tensor: ``x`` ascending (no host sync)."""
+    return torch.all(x[1:] >= x[:-1])
+
+
+def _check(a_keys, a_counts, b_keys, b_counts, cap: int) -> None:
+    dev = a_keys.device
+    for name, t in (("a_keys", a_keys), ("a_counts", a_counts),
+                    ("b_keys", b_keys), ("b_counts", b_counts)):
+        if t.device != dev:
+            raise ValueError(f"merge_fold: {name} on {t.device}, a_keys on {dev}")
+        if t.dtype != torch.int64 or t.dim() != 1 or not t.is_contiguous():
+            raise ValueError(f"merge_fold: {name} must be a contiguous 1-D "
+                             f"int64 tensor (got {t.dtype}, shape "
+                             f"{tuple(t.shape)})")
+    if a_counts.numel() != a_keys.numel() or b_counts.numel() != b_keys.numel():
+        raise ValueError("merge_fold: keys and counts differ in length")
+    if cap < 0:
+        raise ValueError(f"merge_fold: negative cap {cap}")
+
+
+def merge_fold(a_keys: torch.Tensor, a_counts: torch.Tensor,
+               b_keys: torch.Tensor, b_counts: torch.Tensor, cap: int):
+    """Fold the sorted batch B into the packed spectrum A.
+
+    A and B: ascending int64 keys with sentinels only at the tail; counts
+    int64 in [0, 2^32), 0 on sentinel lanes.  Returns ``(keys[cap],
+    counts[cap], live)``: the distinct non-sentinel keys ascending with
+    counts summed mod 2^32, then sentinels with count 0.  ``live`` (0-d
+    int64 tensor, never synced here) counts every group, also past
+    ``cap``, so the caller can detect overflow; it is -1 when A or B was
+    not ascending, and the engine raises when it reads that.
+    """
+    _check(a_keys, a_counts, b_keys, b_counts, cap)
+    ordered = _is_sorted(a_keys) & _is_sorted(b_keys)
+    dev = a_keys.device
+    if dev.type == "cpu":
+        keys, counts, live = merge_fold_reference(a_keys, a_counts, b_keys,
+                                                  b_counts, cap)
+    elif dev.type == "cuda":
+        keys, counts, live = _launch(a_keys, a_counts, b_keys, b_counts, cap)
+    else:
+        raise ValueError(f"merge_fold: no kernel for device {dev}")
+    return keys, counts, torch.where(ordered, live, -1)
+
+
+merge_fold.launches = 0  # kernel launches, read by chip_smoke.py
+
+
+def _launch(a_keys, a_counts, b_keys, b_counts, cap: int):
+    lib = _kernel_lib()
+    dev = a_keys.device
+    n = a_keys.numel() + b_keys.numel()
+    tile = lib.gossamer_fold_tile()
+    nblk = -(-n // tile)
+    out_keys = torch.empty(cap, dtype=torch.int64, device=dev)
+    out_counts = torch.empty(cap, dtype=torch.int64, device=dev)
+    live = torch.empty((), dtype=torch.int64, device=dev)
+    blk_sum = torch.empty(nblk, dtype=torch.int32, device=dev)
+    blk_ends = torch.empty(nblk, dtype=torch.int64, device=dev)
+    sbuf = torch.empty(cap, dtype=torch.int32, device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    err = lib.gossamer_merge_fold(
+        dev.index if dev.index is not None else torch.cuda.current_device(),
+        a_keys.data_ptr(), a_counts.data_ptr(), a_keys.numel(),
+        b_keys.data_ptr(), b_counts.data_ptr(), b_keys.numel(), cap,
+        out_keys.data_ptr(), out_counts.data_ptr(), live.data_ptr(),
+        blk_sum.data_ptr(), blk_ends.data_ptr(), sbuf.data_ptr(), stream)
+    if err != 0:
+        msg = lib.gossamer_cuda_error_string(err).decode()
+        raise RuntimeError(f"merge_fold kernel launch failed: {msg} ({err})")
+    merge_fold.launches += 1
+    return out_keys, out_counts, live
+
+
+def merge_fold_reference(a_keys: torch.Tensor, a_counts: torch.Tensor,
+                         b_keys: torch.Tensor, b_counts: torch.Tensor,
+                         cap: int):
+    """Plain PyTorch :func:`merge_fold`: concatenate, stable sort, group
+    sums by cumsum difference, compact (``engine._sort_count_compact``).
+    Needs no order in A or B and never syncs the host."""
+    keys, order = torch.sort(torch.cat([a_keys, b_keys]), stable=True)
+    S = torch.cumsum(torch.cat([a_counts, b_counts])[order], 0) & M32
+    n = keys.numel()
+    ends = torch.ones(n, dtype=torch.bool, device=keys.device)
+    ends[:-1] = keys[1:] != keys[:-1]
+    ends &= keys != SENT
+    live = ends.sum()
+    dest = torch.cumsum(ends, 0) - 1
+    slot = torch.where(ends & (dest < cap), dest, cap)  # lane cap: discard
+    out_keys = torch.full((cap + 1,), SENT, dtype=torch.int64,
+                          device=keys.device)
+    out_keys.scatter_(0, slot, keys)
+    s_end = torch.zeros(cap + 1, dtype=torch.int64, device=keys.device)
+    s_end.scatter_(0, slot, S)
+    s_end = s_end[:cap]
+    prev = torch.cat([s_end.new_zeros(1), s_end])[:cap]
+    lane = torch.arange(cap, device=keys.device)
+    counts = torch.where(lane < live, (s_end - prev) & M32, 0)
+    return out_keys[:cap].clone(), counts, live

@@ -1,0 +1,117 @@
+"""``goss build-graph`` of the PyTorch port against the JAX CLI.
+
+On the ``tests/test_cli_goss.py`` fixture every file the port writes
+under ``-O`` must be byte-identical to the JAX CLI's, and the graph must
+equal the brute-force model.  A subprocess with jax blocked proves the
+port never imports it.
+"""
+
+import os
+import random
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+from gossamer_tpu.cli.goss import build_app as jax_app
+from gossamer_tpu_torch.cli.goss import main as port_main
+from gossamer_tpu_torch.graph.graph import Graph
+from gossamer_tpu_torch.io.factory import PhysicalFileFactory
+from gossamer_tpu_torch.io.readers import read_files
+from gossamer_tpu_torch.ops.count import count_rho_mers, count_rho_mers_files
+
+from specmodel import spectrum_build_graph
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+SUFFIXES = (".header", ".edges-lo", ".counts", "-counts-hist.txt")
+
+
+@pytest.fixture
+def tiny(tmp_path):
+    """The fixture of tests/test_cli_goss.py."""
+    rng = random.Random(42)
+    genome = "".join(rng.choice("ACGT") for _ in range(400))
+    reads = []
+    for _ in range(60):
+        p = rng.randrange(0, len(genome) - 60)
+        r = genome[p : p + 60]
+        if rng.random() < 0.5:
+            r = "".join("TGCA"["ACGT".index(c)] for c in reversed(r))
+        reads.append(r)
+    fa = tmp_path / "reads.fa"
+    fa.write_text("".join(f">r{i}\n{r}\n" for i, r in enumerate(reads)))
+    return tmp_path, reads, str(fa)
+
+
+def test_build_graph_files_match_jax_cli(tiny):
+    tmp, reads, fa = tiny
+    args = ["build-graph", "-k", "11", "-I", fa, "--chunk-size", "4096"]
+    assert jax_app().main(args + ["-O", str(tmp / "gj")]) == 0
+    assert port_main(args + ["-O", str(tmp / "gt"), "--device", "cpu"]) == 0
+    written = sorted(n for n in os.listdir(tmp) if n.startswith("gt"))
+    assert written == sorted("gt" + s for s in SUFFIXES)
+    for suffix in SUFFIXES:
+        assert (tmp / ("gt" + suffix)).read_bytes() == \
+            (tmp / ("gj" + suffix)).read_bytes(), suffix
+    g = Graph.read(str(tmp / "gt"), PhysicalFileFactory())
+    got = {int(k): int(c) for k, c in zip(g.lo, g.counts)}
+    assert got == spectrum_build_graph(reads, 12)
+    assert g.lint() == []
+
+
+def test_python_reader_route_matches_native(tiny):
+    _tmp, reads, fa = tiny
+    kw = dict(both_strands=True, canonical=False, device=torch.device("cpu"),
+              chunk=1024)
+    native = count_rho_mers_files([fa], 12, **kw)
+    python = count_rho_mers(read_files([fa]), 12, **kw)
+    for a, b in zip(native, python):
+        assert np.array_equal(a, b)
+    assert native[2].sum() == sum(spectrum_build_graph(reads, 12).values())
+
+
+def test_port_runs_with_jax_blocked(tiny):
+    tmp, _reads, fa = tiny
+    code = (
+        "import sys\n"
+        "sys.modules['jax'] = None\n"
+        "sys.modules['gossamer_tpu'] = None\n"
+        "from gossamer_tpu_torch.cli.goss import main\n"
+        f"rc = main(['build-graph', '-k', '11', '-I', {fa!r}, '-O', "
+        f"{str(tmp / 'gb')!r}, '--chunk-size', '4096', '--device', 'cpu'])\n"
+        "assert not [m for m, v in sys.modules.items() if v is not None "
+        "and m.split('.')[0] in ('jax', 'jaxlib', 'gossamer_tpu')]\n"
+        "raise SystemExit(rc)\n")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    assert (tmp / "gb.edges-lo").exists()
+
+
+def test_device_cuda_without_cuda_raises(tiny):
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present")
+    tmp, _reads, fa = tiny
+    with pytest.raises(RuntimeError, match="cuda"):
+        port_main(["build-graph", "-k", "11", "-I", fa, "-O", str(tmp / "g")])
+    assert not (tmp / "g.header").exists()
+
+
+@pytest.mark.parametrize("kw,msg", [({"canonical": True}, "canonical"),
+                                    ({"n_devices": 2}, "several devices")])
+def test_unported_counting_raises(tiny, kw, msg):
+    _tmp, _reads, fa = tiny
+    args = dict(both_strands=False, canonical=False, device=torch.device("cpu"),
+                chunk=1024)
+    args.update(kw)
+    with pytest.raises(NotImplementedError, match=msg):
+        count_rho_mers_files([fa], 12, **args)
+
+
+def test_wide_keys_raise(tiny):
+    tmp, _reads, fa = tiny
+    with pytest.raises(NotImplementedError, match="wide keys"):
+        count_rho_mers_files([fa], 41, both_strands=True, canonical=False,
+                             device=torch.device("cpu"), chunk=1024)
