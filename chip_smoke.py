@@ -1,29 +1,43 @@
 #!/usr/bin/env python3
-"""Smoke run of the PyTorch port of ``goss build-graph`` on one CUDA card.
+"""Smoke run of the PyTorch port on one CUDA card: ``goss build-graph``,
+``xenome index`` + ``xenome classify``, and both hand-written kernels.
 
     python3 chip_smoke.py
 
 1. Prints the card's name and power limit (nvidia-smi) and the versions.
-2. Builds the port's native code from this checkout: ``csrc/fold.cu`` with
-   nvcc and ``native/gossio.cpp`` with g++ (into ``gossamer_tpu_torch/_build``).
-3. Kernel phase: the merge-fold kernel against its plain PyTorch version on
-   the card, exactly, on edge cases and at the path's shape (a 22M-key
-   spectrum at the CLI's default cap and a batch of 8 x 2^22 lanes), both
-   timed with CUDA events.
-4. Slice phase: a seeded E. coli-scale read set (4.6 Mbp random genome, 30x
-   coverage of 100 bp reads, 0.5% substitutions, a few reads with N) goes
-   through the port's CLI, ``build-graph -k 25 --device cuda``.  The graph
-   must hold 2 x the valid 26-mer windows counted on the host, be closed
-   under reverse complement, equal the same count with the plain fold, and,
-   on the first 20k reads, equal a numpy oracle.
-5. Prints one JSON line per kernel, then ``{"ok": true, "device": ...}``.
+2. Builds the port's native code from this checkout, all compilers started
+   together: ``csrc/fold.cu`` and ``csrc/merge.cu`` with nvcc,
+   ``native/gossio.cpp`` with g++ (into ``gossamer_tpu_torch/_build``).
+3. Kernel phases: each kernel against its plain PyTorch version on the
+   card, exactly, on edge cases and at the path's shape (the merge-fold: a
+   22M-key spectrum at the CLI's default cap and a batch of 8 x 2^22
+   lanes; the merge: the same spectrum and a sorted batch of 8 x 2^22
+   lanes), both timed with CUDA events.
+4. build-graph phase: a seeded E. coli-scale read set (4.6 Mbp random
+   genome, 30x coverage of 100 bp reads, 0.5% substitutions, a few reads
+   with N) goes through the port's CLI, ``build-graph -k 25 --device
+   cuda``.  The graph must hold 2 x the valid 26-mer windows counted on the
+   host, be closed under reverse complement, equal the same count with the
+   plain fold, and, on the first 20k reads, equal a numpy oracle.
+5. xenome phase at bacterial scale: two seeded 4.6 Mbp references sharing
+   a 20 kbp segment (0.5% substitutions in the host's copy), 1M reads of
+   100 bp (45% graft, 45% host, 5% the segment, 5% random; 0.5%
+   substitutions; one read in 1000 with an N) through the port's CLI,
+   ``xenome index -K 25`` and ``xenome classify``.  The index must equal a
+   numpy oracle, the device near-k-mer pass must equal the host version on
+   200 kbp prefixes, and the first 20k reads' classes a per-read oracle.
+6. Prints one JSON line with both kernels, then ``{"ok": true, ...}``.
 
-Any failed check raises, and the script exits non-zero.  Without CUDA it
-exits 2 before running anything.
+Each path runs with every kernel's launch count set to 0 just before it
+and read just after; a kernel the path runs must have launched.  Any failed
+check raises, and the script exits non-zero.  Without CUDA it exits 2
+before running anything.
 """
 
 from __future__ import annotations
 
+import contextlib
+import io
 import json
 import os
 import shutil
@@ -31,6 +45,7 @@ import subprocess
 import sys
 import tempfile
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 
@@ -85,7 +100,7 @@ def fold_pair(a, ac, b, bc, cap):
     return got, want, err
 
 
-def kernel_phase(dev, smi: str) -> dict:
+def fold_phase(dev, smi: str) -> dict:
     import torch
 
     from gossamer_tpu_torch.ops import fold
@@ -181,6 +196,116 @@ def kernel_phase(dev, smi: str) -> dict:
           f"{ms:.3f} ms (runs {kern}), kernel launch alone {launch_ms:.3f} ms, "
           f"plain {plain_ms:.3f} ms (runs {plain}); ~{gbytes:.2f} GB moved "
           f"-> {gbytes / (launch_ms / 1e3):.0f} GB/s", flush=True)
+    return {"max_abs_err": worst, "ms": ms, "plain_ms": plain_ms}
+
+
+def merge_pair(a, av, b, bv):
+    """(kernel result, max abs difference from the plain result) on the card."""
+    import torch
+
+    from gossamer_tpu_torch.ops.merge import merge_sorted, merge_sorted_reference
+
+    got = merge_sorted(a, av, b, bv)
+    want = merge_sorted_reference(a, av, b, bv)
+    torch.cuda.synchronize()
+    err = max(int((g - w).abs().max()) if g.numel() else 0
+              for g, w in zip(got, want))
+    return got, err
+
+
+def merge_phase(dev, smi: str) -> dict:
+    import torch
+
+    from gossamer_tpu_torch.ops import merge
+    from gossamer_tpu_torch.ops.fold import SENT
+
+    rng = np.random.default_rng(3)
+
+    def t(x):
+        return torch.as_tensor(np.asarray(x, np.int64), device=dev)
+
+    def run(n, space=1 << 50, sent=0):
+        k = np.concatenate([np.sort(rng.integers(0, space, n)),
+                            np.full(sent, SENT)])
+        return t(k), t(rng.integers(-(1 << 40), 1 << 40, len(k)))
+
+    low = np.arange(5000)
+    cases = {
+        "equal keys carrying distinct values": (*run(7001, 16), *run(9003, 16)),
+        "A of 0 lanes": (*run(0), *run(4099)),
+        "B of 0 lanes": (*run(4099), *run(0)),
+        "both of 0 lanes": (*run(0), *run(0)),
+        "all-sentinel runs": (*run(0, sent=3000), *run(0, sent=2500)),
+        "lengths off every tile, sentinel tails": (*run(2047, sent=3),
+                                                   *run(6143, sent=1)),
+        "A entirely below B": (t(low), t(low + 1), t(low + 10_000), t(low)),
+        "B entirely below A": (t(low + 10_000), t(low), t(low), t(low + 1)),
+    }
+    worst = 0
+    for name, args in cases.items():
+        got, err = merge_pair(*args)
+        check(err == 0, f"merge_sorted kernel == plain, {name} "
+                        f"({got[0].numel()} lanes)")
+        worst = max(worst, err)
+
+    # the path's shape: the spectrum at the default cap holding 22M keys;
+    # a sorted batch of 8 x 2^22 lanes, ~3/4 valid, most keys already in A
+    g = torch.Generator(device=dev).manual_seed(4)
+    keys = torch.unique(torch.randint(0, 1 << 52, (22_000_000,), device=dev,
+                                      generator=g))
+    a = torch.full((CAP,), SENT, dtype=torch.int64, device=dev)
+    a[: keys.numel()] = keys
+    av = torch.arange(CAP, dtype=torch.int64, device=dev)
+    nb = BATCH * CHUNK
+    n_valid = nb * 3 // 4
+    old = keys[torch.randint(0, keys.numel(), (n_valid * 4 // 5,), device=dev,
+                             generator=g)]
+    new = torch.randint(0, 1 << 52, (n_valid - old.numel(),), device=dev,
+                        generator=g)
+    b = torch.full((nb,), SENT, dtype=torch.int64, device=dev)
+    b[:n_valid] = torch.sort(torch.cat([old, new])).values
+    bv = -1 - torch.arange(nb, dtype=torch.int64, device=dev)
+    got, err = merge_pair(a, av, b, bv)
+    check(err == 0, f"merge_sorted kernel == plain at the path's shape: A "
+                    f"{CAP} lanes ({keys.numel()} keys), B {nb} lanes")
+    worst = max(worst, err)
+
+    def timed(a, av, b, bv, what):
+        def run_kernel():
+            merge.merge_sorted(a, av, b, bv)
+
+        def run_plain():
+            merge.merge_sorted_reference(a, av, b, bv)
+
+        plain = [time_ms(run_plain)]
+        kern = [time_ms(run_kernel), time_ms(run_kernel)]
+        plain.append(time_ms(run_plain))
+        ms, plain_ms = min(kern), min(plain)
+        gbytes = 2 * (a.numel() + b.numel()) * 16 / 1e9
+        print(f"merge_sorted at A={a.numel()} B={b.numel()} lanes ({what}) on "
+              f"{smi}: kernel {ms:.3f} ms (runs {kern}), plain {plain_ms:.3f} "
+              f"ms (runs {plain}); {gbytes:.3f} GB moved -> "
+              f"{gbytes / (ms / 1e3):.0f} GB/s", flush=True)
+        return ms, plain_ms
+
+    ms, plain_ms = timed(a, av, b, bv, "the fold's spectrum and batch")
+
+    # the classify join's shape: the xenome index of the xenome phase
+    # (9,182,371 lanes, ids -1) and one batch window of 2^19 query lanes,
+    # 3/4 valid, sorted
+    keys = torch.unique(torch.randint(0, 1 << 52, (9_182_371,), device=dev,
+                                      generator=g))
+    qa, qav = keys, torch.full_like(keys, -1)
+    nq = 1 << 19
+    qb = torch.full((nq,), SENT, dtype=torch.int64, device=dev)
+    qb[: nq * 3 // 4] = torch.sort(torch.randint(
+        0, 1 << 52, (nq * 3 // 4,), device=dev, generator=g)).values
+    qbv = torch.arange(nq, dtype=torch.int64, device=dev)
+    _got, err = merge_pair(qa, qav, qb, qbv)
+    check(err == 0, f"merge_sorted kernel == plain at the classify join's "
+                    f"shape: A {qa.numel()} lanes, B {nq} lanes")
+    worst = max(worst, err)
+    timed(qa, qav, qb, qbv, "the classify join")
     return {"max_abs_err": worst, "ms": ms, "plain_ms": plain_ms}
 
 
@@ -321,6 +446,253 @@ def slice_phase(dev, smi: str, tmp: str) -> int:
           f"first 20k reads: {len(hlo)} edges == numpy oracle")
     return launches
 
+# ------------------------------------------------------------ xenome phase
+XK = 25  # xenome index -K 25
+N_READS = 1_000_000
+ACGTN = np.frombuffer(b"ACGTN", np.uint8)
+
+
+def make_references(rng, length=4_600_000, seg_at=100_000, seg_len=20_000,
+                    seg_sub=0.005):
+    """Codes of a graft and a host reference (seeded, random) sharing one
+    segment; the host's copy carries point substitutions, so that
+    compute-near-kmers has marginal k-mers to find."""
+    graft = rng.integers(0, 4, length, dtype=np.uint8)
+    host = rng.integers(0, 4, length, dtype=np.uint8)
+    seg = rng.integers(0, 4, seg_len, dtype=np.uint8)
+    graft[seg_at : seg_at + seg_len] = seg
+    pos = rng.choice(seg_len, int(seg_len * seg_sub), replace=False)
+    hseg = seg.copy()
+    hseg[pos] = (hseg[pos] + rng.integers(1, 4, len(pos), dtype=np.uint8)) % 4
+    host[seg_at : seg_at + seg_len] = hseg
+    return graft, host, seg
+
+
+def sample_reads(rng, sources, weights, n, read_len=100, sub_rate=0.005,
+                 n_every=1000):
+    """uint8[n, read_len] codes (4 = N): reads of the sources (None: random
+    sequence) in the given shares, either strand, with substitutions and
+    one N in every ``n_every`` reads."""
+    src = rng.choice(len(sources), n, p=weights)
+    reads = np.empty((n, read_len), np.uint8)
+    for i, seq in enumerate(sources):
+        rows = np.nonzero(src == i)[0]
+        if seq is None:
+            reads[rows] = rng.integers(0, 4, (len(rows), read_len), dtype=np.uint8)
+            continue
+        starts = rng.integers(0, len(seq) - read_len + 1, len(rows))
+        reads[rows] = np.lib.stride_tricks.sliding_window_view(seq, read_len)[starts]
+    flip = rng.random(n) < 0.5
+    reads[flip] = 3 - reads[flip, ::-1]
+    n_sub = rng.binomial(reads.size, sub_rate)
+    pos = rng.integers(0, reads.size, n_sub)
+    flat = reads.reshape(-1)
+    flat[pos] = (flat[pos] + rng.integers(1, 4, n_sub, dtype=np.uint8)) % 4
+    rows = rng.choice(n, n // n_every, replace=False)
+    reads[rows, rng.integers(0, read_len, len(rows))] = 4
+    return reads
+
+
+def window_keys(codes: np.ndarray, k: int):
+    """k-windows of the last axis -> (uint64 keys, valid: no code >= 4)."""
+    win = np.lib.stride_tricks.sliding_window_view(codes, k, axis=-1)
+    keys = np.zeros(win.shape[:-1], np.uint64)
+    for j in range(k):
+        keys = (keys << np.uint64(2)) | (win[..., j] & 3).astype(np.uint64)
+    return keys, (win < 4).all(axis=-1)
+
+
+def normalized(keys: np.ndarray, k: int) -> np.ndarray:
+    from gossamer_tpu_torch.core import kmer as K
+
+    return K.normalize(keys, np.zeros_like(keys), k)[0]
+
+
+def index_oracle(graft, host, k):
+    """Union of the FNV-normalized windows of both references + bits."""
+    gs = np.unique(normalized(window_keys(graft, k)[0], k))
+    hs = np.unique(normalized(window_keys(host, k)[0], k))
+    union = np.union1d(gs, hs)
+    return (union, np.isin(union, gs, assume_unique=True),
+            np.isin(union, hs, assume_unique=True))
+
+
+def blrg_oracle(reads: np.ndarray, ann) -> np.ndarray:
+    """Per-read blrg: each read on its own, windows holding an N skipped."""
+    keys, valid = window_keys(reads, ann.kset.k)
+    row = np.broadcast_to(np.arange(len(reads))[:, None], keys.shape)[valid]
+    nk = normalized(keys[valid], ann.kset.k)
+    r = np.minimum(np.searchsorted(ann.kset.lo, nk), ann.kset.count - 1)
+    hit = ann.kset.lo[r] == nk
+    r = r[hit]
+    cls = (ann.lhs[r].astype(np.uint8) << 1) | ann.rhs[r].astype(np.uint8)
+    blrg = np.zeros(len(reads), np.uint8)
+    np.bitwise_or.at(blrg, row[hit], (np.uint8(1) << cls).astype(np.uint8))
+    return blrg
+
+
+def write_reference(path: str, label: str, codes: np.ndarray) -> None:
+    with open(path, "wb") as f:
+        f.write(b">" + label.encode() + b"\n" + ACGTN[codes].tobytes() + b"\n")
+
+
+def output_classes(prefix: str, n: int) -> np.ndarray:
+    """Class file (index into CLASSES) of every read the CLI wrote."""
+    out = np.full(n, 255, np.uint8)
+    for c, name in enumerate(CLASSES):
+        with open(f"{prefix}_{name}.fasta", "rb") as f:
+            labels = f.read().split(b"\n")[0::2]
+        ids = np.array([int(x[2:]) for x in labels if x], np.int64)
+        check(np.all(np.diff(ids) > 0) and (out[ids] == 255).all(),
+              f"{os.path.basename(prefix)}_{name}.fasta: {len(ids)} reads, "
+              f"in input order")
+        out[ids] = c
+    return out
+
+
+CLASSES = ("neither", "both", "ambiguous", "graft", "host")
+
+
+def near_kmers_check(dev, graft, host) -> None:
+    """Device compute-near-kmers == the host numpy version on an index of
+    200 kbp prefixes of the references."""
+    from gossamer_tpu_torch.classify.annotated_set import (
+        AnnotatedKmerSet, compute_near_kmers, compute_near_kmers_host,
+        merge_and_annotate)
+    from gossamer_tpu_torch.graph.build import build_kmer_set
+    from gossamer_tpu_torch.io.readers import Read
+
+    def kset(codes):
+        return build_kmer_set([Read("p", ACGTN[codes].tobytes())], XK,
+                              device=dev)[0]
+
+    ann, _ = merge_and_annotate(kset(graft[:200_000]), kset(host[:200_000]))
+    host_ann = AnnotatedKmerSet(ann.kset, ann.lhs.copy(), ann.rhs.copy())
+    t0 = time.perf_counter()
+    n_dev = compute_near_kmers(ann, dev)
+    dev_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    n_host = compute_near_kmers_host(host_ann)
+    host_s = time.perf_counter() - t0
+    check(n_dev == n_host and n_dev > 0 and np.array_equal(ann.lhs, host_ann.lhs)
+          and np.array_equal(ann.rhs, host_ann.rhs),
+          f"200 kbp prefixes ({ann.kset.count} k-mers): device near-k-mers "
+          f"({n_dev} marginal, {dev_s:.3f} s) == host numpy ({n_host}, "
+          f"{host_s:.3f} s)")
+
+
+def xenome_phase(dev, smi: str, tmp: str) -> tuple[int, int]:
+    """-> (merge_fold launches in ``index``, merge_sorted launches in
+    ``classify``)."""
+    import torch
+
+    from gossamer_tpu_torch.classify.annotated_set import AnnotatedKmerSet
+    from gossamer_tpu_torch.classify.xenome import OUT_CLASS, classify_reads
+    from gossamer_tpu_torch.cli.xenome import main as xenome
+    from gossamer_tpu_torch.io.factory import PhysicalFileFactory
+    from gossamer_tpu_torch.io.readers import Read
+    from gossamer_tpu_torch.ops import fold, merge
+    from gossamer_tpu_torch.utils import profile
+
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(2027)
+    graft, host, seg = make_references(rng)
+    reads = sample_reads(rng, [graft, host, seg, None],
+                         [0.45, 0.45, 0.05, 0.05], N_READS)
+    g_fa, h_fa, r_fa = (os.path.join(tmp, n) for n in ("graft.fa", "host.fa", "xreads.fa"))
+    write_reference(g_fa, "graft", graft)
+    write_reference(h_fa, "host", host)
+    write_fasta(r_fa, reads)
+    print(f"xenome inputs: 2 x {len(graft)} bp references, {len(reads)} reads "
+          f"x {reads.shape[1]} bp ({int((reads == 4).any(axis=1).sum())} with "
+          f"an N), {os.path.getsize(r_fa)} B FASTA; made in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+
+    idx = os.path.join(tmp, "idx")
+    log = os.path.join(tmp, "index.log")
+    torch.cuda.reset_peak_memory_stats(dev)
+    fold.merge_fold.launches = merge.merge_sorted.launches = 0
+    t0 = time.perf_counter()
+    rc = xenome(["index", "-K", str(XK), "-G", g_fa, "-H", h_fa, "-P", idx,
+                 "--device", str(dev), "-l", log])
+    index_wall = time.perf_counter() - t0
+    index_launches = fold.merge_fold.launches
+    index_peak = torch.cuda.max_memory_allocated(dev)
+    check(rc == 0, "xenome index exit code 0")
+    with open(log) as f:
+        index_log = f.read()
+    print(index_log, end="", flush=True)
+    check(index_launches > 0, f"merge_fold kernel launched {index_launches} "
+                              f"times in xenome index")
+
+    ann = AnnotatedKmerSet.read(idx, PhysicalFileFactory())
+    union, lhs_o, rhs_o = index_oracle(graft, host, XK)
+    check(np.array_equal(ann.kset.lo, union) and not ann.kset.hi.any(),
+          f"union of {ann.kset.count} k-mers == numpy oracle")
+    kept = ann.lhs | ann.rhs
+    gray = int((~kept).sum())
+    check(np.array_equal(ann.lhs[kept], lhs_o[kept])
+          and np.array_equal(ann.rhs[kept], rhs_o[kept])
+          and bool((lhs_o != rhs_o)[~kept].all())
+          and f"marginal kmers: {gray}\n" in index_log,
+          f"lhs/rhs bits == numpy oracle; the {gray} cleared k-mers were "
+          f"exclusive")
+    near_kmers_check(dev, graft, host)
+
+    out_prefix = os.path.join(tmp, "out")
+    log = os.path.join(tmp, "classify.log")
+    torch.cuda.reset_peak_memory_stats(dev)
+    profile.reset()
+    profile.enable()
+    fold.merge_fold.launches = merge.merge_sorted.launches = 0
+    stdout = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(stdout):
+        rc = xenome(["classify", "-P", idx, "-I", r_fa,
+                     "--output-filename-prefix", out_prefix,
+                     "--device", str(dev), "-l", log])
+    classify_wall = time.perf_counter() - t0
+    classify_launches = merge.merge_sorted.launches
+    classify_peak = torch.cuda.max_memory_allocated(dev)
+    profile.enable(False)
+    phases = profile.totals()
+    check(rc == 0, "xenome classify exit code 0")
+    print(stdout.getvalue(), end="", flush=True)
+    check(classify_launches > 0, f"merge_sorted kernel launched "
+                                 f"{classify_launches} times in xenome classify")
+    lines = stdout.getvalue().splitlines()
+    counts = [int(line.split("\t")[4]) for line in lines[2:18]]
+    check(sum(counts) == N_READS, f"class totals sum to {N_READS} reads")
+
+    head = reads[:20000]
+    want = blrg_oracle(head, ann)
+    got = np.array([b for _r, b in classify_reads(
+        (Read(f"r{i:07d}", ACGTN[c].tobytes()) for i, c in enumerate(head)),
+        ann, device=dev)], np.uint8)
+    n_with_n = int((head == 4).any(axis=1).sum())
+    check(np.array_equal(got, want),
+          f"first {len(head)} reads ({n_with_n} with an N): blrg == per-read "
+          f"numpy oracle (classes {np.bincount(want, minlength=16).tolist()})")
+    names = {"lhs": "graft", "rhs": "host"}
+    want_cls = np.array([CLASSES.index(names.get(OUT_CLASS[b], OUT_CLASS[b]))
+                         for b in want], np.uint8)
+    check(np.array_equal(output_classes(out_prefix, N_READS)[: len(head)],
+                         want_cls),
+          f"the CLI wrote each of the first {len(head)} reads to its class file")
+
+    host = {name: phases.get(f"classify/{name}", 0.0)
+            for name in ("encode", "pack", "launch", "wait")}
+    other = classify_wall - sum(host.values())
+    print(f"xenome -K {XK} on {smi}: index {ann.kset.count} k-mers ({gray} "
+          f"marginal), wall {index_wall:.3f} s, peak device memory "
+          f"{index_peak / 2**30:.2f} GiB; classify {N_READS} reads, wall "
+          f"{classify_wall:.3f} s -> {N_READS / classify_wall:.0f} reads/s; "
+          f"phases (s, host clock): encode {host['encode']:.3f}, pack "
+          f"{host['pack']:.3f}, launch {host['launch']:.3f}, wait for the "
+          f"device {host['wait']:.3f}, other (parse, output) {other:.3f}; "
+          f"peak device memory {classify_peak / 2**30:.2f} GiB", flush=True)
+    return index_launches, classify_launches
+
 
 def main() -> int:
     import torch
@@ -330,7 +702,7 @@ def main() -> int:
         return 2
     sys.path.insert(0, ROOT)
     from gossamer_tpu_torch.io import native
-    from gossamer_tpu_torch.ops import fold
+    from gossamer_tpu_torch.ops import nvcc
 
     dev = torch.device("cuda", 0)
     smi = card_line()
@@ -339,23 +711,35 @@ def main() -> int:
           f"python {sys.version.split()[0]}, {torch.cuda.get_device_name(0)}",
           flush=True)
 
-    shutil.rmtree(fold.BUILD_DIR, ignore_errors=True)
-    _so, nvcc_s, ptxas = fold.build_kernel_library()
-    _so, gxx_s = native.build_library()
-    print(f"build: nvcc csrc/fold.cu {nvcc_s:.3f} s, g++ libgossio.so "
-          f"{gxx_s:.3f} s", flush=True)
-    print("\n".join(line for line in ptxas.splitlines()
-                    if "registers" in line), flush=True)
+    shutil.rmtree(nvcc.BUILD_DIR, ignore_errors=True)
+    with ThreadPoolExecutor(3) as ex:
+        jobs = {name: ex.submit(nvcc.build_library, name)
+                for name in ("fold", "merge")}
+        gxx = ex.submit(native.build_library)
+        builds = {name: job.result() for name, job in jobs.items()}
+        _so, gxx_s = gxx.result()
+    print("build (in parallel): " + ", ".join(
+        f"nvcc csrc/{name}.cu {b[1]:.3f} s" for name, b in builds.items())
+          + f", g++ libgossio.so {gxx_s:.3f} s", flush=True)
+    for name, b in builds.items():
+        print("\n".join(f"{name}.cu {line}" for line in b[2].splitlines()
+                        if "registers" in line), flush=True)
 
-    stats = kernel_phase(dev, smi)
+    fold_stats = fold_phase(dev, smi)
+    merge_stats = merge_phase(dev, smi)
     with tempfile.TemporaryDirectory() as tmp:
-        launches = slice_phase(dev, smi, tmp)
+        graph_launches = slice_phase(dev, smi, tmp)
+        index_launches, classify_launches = xenome_phase(dev, smi, tmp)
 
-    print(json.dumps({"kernels": [{
-        "name": "merge_fold", "route": "cuda",
-        "source": "gossamer_tpu_torch/csrc/fold.cu",
-        "replaces": "gossamer_tpu/ops/pallas_fold.py:151",
-        "launches": launches, **stats}]}), flush=True)
+    print(json.dumps({"kernels": [
+        {"name": "merge_fold", "route": "cuda",
+         "source": "gossamer_tpu_torch/csrc/fold.cu",
+         "replaces": "gossamer_tpu/ops/pallas_fold.py:151",
+         "launches": graph_launches + index_launches, **fold_stats},
+        {"name": "merge_sorted", "route": "cuda",
+         "source": "gossamer_tpu_torch/csrc/merge.cu",
+         "replaces": "gossamer_tpu/ops/pallas_merge.py:116",
+         "launches": classify_launches, **merge_stats}]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -1,4 +1,5 @@
-"""Command registry (``gossamer_tpu/cmds/__init__.py``); build-graph only."""
+"""Command registry (``gossamer_tpu/cmds/__init__.py``): build-graph,
+build-kmer-set and dump-kmer-set."""
 
 
 def all_goss_commands():

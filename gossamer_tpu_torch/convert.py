@@ -1,9 +1,11 @@
-"""Spectrum state between the JAX package and the port.
+"""Spectrum and classifier state between the JAX package and the port.
 
 The JAX engine keeps a narrow spectrum as three uint32 planes (key high
 and low words, count) with the sentinel pair ``(SENT32, SENT32)``; the
 port keeps one int64 key per lane with the sentinel ``2**63 - 1`` and
-int64 counts in [0, 2^32).
+int64 counts in [0, 2^32).  The JAX classifier holds its annotated set
+as a uint64 E plane or as (high, low) uint32 planes; the port as one
+int64 E tensor.
 """
 
 from __future__ import annotations
@@ -36,3 +38,33 @@ def planes_from_spectrum(keys: torch.Tensor, counts: torch.Tensor):
     l0 = np.where(sent, SENT32, k & 0xFFFFFFFF).astype(np.uint32)
     c = counts.cpu().numpy().astype(np.uint32)
     return l1, l0, c
+
+
+def set_from_u64(set_E: np.ndarray, device: torch.device) -> torch.Tensor:
+    """The JAX classifier's uint64 E plane (``classify.device.encode_set``)
+    -> the port's int64 E tensor on ``device``.  Narrow E values (k <= 30)
+    are below 2^62, so the bits are kept as they are."""
+    set_E = np.ascontiguousarray(set_E, dtype=np.uint64)
+    if len(set_E) and int(set_E.max()) >> 63:
+        raise ValueError("set E values must be below 2^63 (narrow keys)")
+    return torch.from_numpy(set_E.view(np.int64)).to(device)
+
+
+def set_to_u64(set_E: torch.Tensor) -> np.ndarray:
+    """The port's int64 E tensor -> the JAX uint64 E plane."""
+    return set_E.cpu().numpy().view(np.uint64)
+
+
+def set_from_planes(eh: np.ndarray, el: np.ndarray,
+                    device: torch.device) -> torch.Tensor:
+    """The JAX classifier's (set_eh, set_el) uint32 planes -> the port's
+    int64 E tensor on ``device``."""
+    e = ((np.asarray(eh, np.uint32).astype(np.uint64) << np.uint64(32))
+         | np.asarray(el, np.uint32).astype(np.uint64))
+    return set_from_u64(e, device)
+
+
+def planes_from_set(set_E: torch.Tensor):
+    """The port's int64 E tensor -> the JAX (set_eh, set_el) uint32 planes."""
+    e = set_to_u64(set_E)
+    return (e >> np.uint64(32)).astype(np.uint32), e.astype(np.uint32)

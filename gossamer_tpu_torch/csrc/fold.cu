@@ -11,10 +11,11 @@
 // so this version carries nothing between blocks:
 //
 //   1. fold_reduce   each block takes TILE lanes of the merged order: a
-//                    merge-path binary search finds its slices of A and B,
-//                    which it merges from shared memory (A first on ties,
-//                    `take_a` in the TPU kernel).  It writes its count total
-//                    (mod 2^32) and its number of non-sentinel group ends.
+//                    merge-path binary search (merge_path.cuh) finds its
+//                    slices of A and B, which it merges from shared memory
+//                    (A first on ties, `take_a` in the TPU kernel).  It
+//                    writes its count total (mod 2^32) and its number of
+//                    non-sentinel group ends.
 //   2. fold_scan     one block turns the block totals into exclusive prefixes
 //                    and writes `live`.
 //   3. fold_scatter  each block merges its tile again, scans counts into the
@@ -36,6 +37,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "merge_path.cuh"
+
 namespace {
 
 constexpr int THREADS = 256;
@@ -52,24 +55,6 @@ struct TileSmem {
     unsigned wsum[WARPS];
     long long wend[WARPS];
 };
-
-// Number of A lanes among the first `diag` lanes of the merged order, with A
-// first on equal keys (merge path, lower bound).
-template <typename I>
-__device__ __forceinline__ I merge_path(const long long* a, I na, const long long* b, I nb,
-                                        I diag) {
-    I lo = diag > nb ? diag - nb : 0;
-    I hi = diag < na ? diag : na;
-    while (lo < hi) {
-        I mid = (lo + hi) >> 1;
-        if (a[mid] <= b[diag - 1 - mid]) {
-            lo = mid + 1;
-        } else {
-            hi = mid;
-        }
-    }
-    return lo;
-}
 
 // Inclusive scan over the block; `total` receives the block's sum.
 template <typename T>
@@ -122,11 +107,11 @@ __device__ __forceinline__ void merge_tile(const long long* __restrict__ a,
         sm.first[THREADS] = succ;
     }
     __syncthreads();
-    const long long a0 = sm.split[0];
-    const long long a1 = sm.split[1];
-    const int la = (int)(a1 - a0);
-    const int lb = (int)((d1 - a1) - (d0 - a0));
-    const long long b0 = d0 - a0;
+    const TileSlices sl = tile_slices(d0, d1, sm.split[0], sm.split[1]);
+    const long long a0 = sl.a0;
+    const long long b0 = sl.b0;
+    const int la = sl.la;
+    const int lb = sl.lb;
     for (int i = threadIdx.x; i < la; i += THREADS) {
         sm.key[i] = a[a0 + i];
         sm.cnt[i] = (unsigned)ac[a0 + i];

@@ -1,14 +1,96 @@
-"""Sorted 128-bit key search (``rank128`` of ``gossamer_tpu/graph/kmer_set.py``).
+"""KmerSet: a sorted set of canonical k-mers (host copy of
+``gossamer_tpu/graph/kmer_set.py``).
 
-The port needs only the search that :class:`..graph.Graph` uses; the
-``KmerSet`` artifact arrives with build-kmer-set.
+Replaces the reference's Elias-Fano ``KmerSet`` (``src/KmerSet.hh:20-257``)
+with a sorted pair of uint64 planes; ``rank`` is a vectorized
+``searchsorted`` and ``select`` a gather.
+
+Files: ``<p>.header`` (version/K/count), ``<p>.kmers-lo``, ``<p>.kmers-hi``.
+Text dump format matches ``src/GossCmdDumpKmerSet.cc:43-53``:
+``#<version>\\nK\\tcount\\n<kmer>`` per line.  The reference's own binary
+format is not read by the port.
 """
 
 from __future__ import annotations
 
+from dataclasses import dataclass
+
 import numpy as np
 
+from .. import KMER_SET_VERSION
+from ..core import kmer as K
+from ..io.artifacts import read_array, read_header, write_array, write_header
+from ..io.factory import FileFactory
+
 U64 = np.uint64
+
+
+@dataclass
+class KmerSet:
+    k: int
+    lo: np.ndarray  # uint64[n], sorted ascending by (hi, lo)
+    hi: np.ndarray
+
+    @property
+    def count(self) -> int:
+        return len(self.lo)
+
+    # -- persistence -------------------------------------------------------
+    def write(self, basename: str, fac: FileFactory) -> None:
+        write_header(
+            fac,
+            basename,
+            {"version": KMER_SET_VERSION, "K": self.k, "count": self.count,
+             "kind": "kmer-set"},
+        )
+        write_array(fac, basename + ".kmers-lo", self.lo)
+        write_array(fac, basename + ".kmers-hi", self.hi)
+
+    @classmethod
+    def read(cls, basename: str, fac: FileFactory) -> "KmerSet":
+        try:
+            h = read_header(fac, basename, KMER_SET_VERSION)
+        except (ValueError, UnicodeDecodeError) as e:
+            raise NotImplementedError(
+                f"{basename}: not a k-mer set of this package (reading the "
+                f"reference's binary format is not ported yet)") from e
+        lo = read_array(fac, basename + ".kmers-lo")
+        hi = read_array(fac, basename + ".kmers-hi")
+        return cls(h["K"], lo, hi)
+
+    # -- queries -----------------------------------------------------------
+    def rank(self, lo, hi) -> np.ndarray:
+        """Number of set elements < query (``SparseArray::rank``)."""
+        return rank128(self.lo, self.hi, lo, hi)
+
+    def access_and_rank(self, lo, hi):
+        """(present?, rank) per query (``KmerSet::accessAndRank``)."""
+        r = self.rank(lo, hi)
+        inside = r < self.count
+        ridx = np.minimum(r, max(self.count - 1, 0))
+        if self.count == 0:
+            return np.zeros(len(np.atleast_1d(lo)), dtype=bool), r
+        hit = inside & (self.lo[ridx] == lo) & (self.hi[ridx] == hi)
+        return hit, r
+
+    def select(self, ranks) -> tuple[np.ndarray, np.ndarray]:
+        return self.lo[ranks], self.hi[ranks]
+
+    def stat(self) -> dict:
+        return {
+            "K": self.k,
+            "count": self.count,
+            "storage-bytes": int(self.lo.nbytes + self.hi.nbytes),
+        }
+
+    # -- text dump ---------------------------------------------------------
+    def dump_text(self, out) -> None:
+        out.write(f"#{KMER_SET_VERSION}\n")
+        out.write(f"{self.k}\t{self.count}\n")
+        if self.count:
+            mat = K.kmers_to_strings(self.k, self.lo, self.hi)
+            nl = np.full((self.count, 1), ord("\n"), dtype=np.uint8)
+            out.write(np.hstack([mat, nl]).tobytes().decode())
 
 
 def rank128(set_lo: np.ndarray, set_hi: np.ndarray, qlo, qhi) -> np.ndarray:

@@ -3,9 +3,8 @@
 Counterpart of ``gossamer_tpu/ops/count.py`` for narrow keys on one
 device.  Both readers feed one input format: the native reader yields
 packed chunks, and the Python reader's flat code chunks are packed with
-``io.stream.pack_chunk``.  Wide keys (rho > 31), canonical (build-kmer-set)
-counting and several devices are not ported yet and raise
-``NotImplementedError``.
+``io.stream.pack_chunk``.  Wide keys (rho > 31) and several devices are
+not ported yet and raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -51,16 +50,13 @@ def _expand_symmetric(lo: np.ndarray, c: np.ndarray, rho: int):
     return out_lo, np.zeros_like(out_lo), out_c
 
 
-def _check_supported(rho: int, canonical: bool, n_devices: int) -> None:
+def _check_supported(rho: int, n_devices: int) -> None:
     if n_devices != 1:
         raise NotImplementedError("counting across several devices is not "
                                   "ported yet")
     if not narrow_keys(rho):
         raise NotImplementedError(f"wide keys (rho={rho} > 31) are not "
                                   f"ported yet")
-    if canonical:
-        raise NotImplementedError("canonical counting (build-kmer-set, FNV "
-                                  "order) is not ported yet")
 
 
 def count_chunks(
@@ -82,10 +78,13 @@ def count_chunks(
 
     ``both_strands`` counts every window and its reverse complement
     (build-graph semantics): canonical classes are counted at half the
-    lane volume and expanded to both orientations at the end.  ``fold``
+    lane volume and expanded to both orientations at the end.
+    ``canonical`` counts each window's class under the reference's FNV
+    order (build-kmer-set semantics, ``src/GossCmdBuildKmerSet.tcc:248-249``).
+    ``fold``
     selects the merge-fold kernel or its plain version (engine argument).
     """
-    _check_supported(rho, canonical, n_devices)
+    _check_supported(rho, n_devices)
     if chunk <= 0 or chunk % 16:
         raise ValueError(f"packed chunks need a chunk size divisible by 16 "
                          f"(got {chunk})")
@@ -93,7 +92,7 @@ def count_chunks(
     if log is not None:
         on_spill = lambda i, n: log(  # noqa: E731
             "info", f"spill {i}: {n:,} distinct keys -> host RAM run")
-    mode = "value" if both_strands else "plain"
+    mode = "ref" if canonical else ("value" if both_strands else "plain")
     eng = None
     n_chunks = 0
     t0 = time.perf_counter()
@@ -137,7 +136,7 @@ def count_rho_mers_files(paths: list[str], rho: int, *, chunk: int = 1 << 22,
     from ..io.native import NativeUnavailable, native_packed_chunks
     from ..io.readers import read_files
 
-    _check_supported(rho, kw.get("canonical", False), kw.get("n_devices", 1))
+    _check_supported(rho, kw.get("n_devices", 1))
     try:
         chunks = native_packed_chunks(paths, rho, chunk=chunk, fmt=fmt,
                                       threads=threads)

@@ -80,8 +80,9 @@ def _read_live(live: torch.Tensor) -> int:
 class SpectrumEngine:
     """Host driver: stream packed chunks, keep a packed device spectrum.
 
-    ``mode``: 'value' (min-by-value classes, for symmetric expansion) or
-    'plain' (forward strand as is).  ``cap`` bounds the device-resident
+    ``mode``: 'value' (min-by-value classes, for symmetric expansion),
+    'ref' (the reference's FNV-order classes, for k-mer sets) or 'plain'
+    (forward strand as is).  ``cap`` bounds the device-resident
     distinct-key working set; the device cap starts at the size of the
     first flush and grows by spilling and doubling.  With ``spill=False``
     overflowing ``cap`` raises at ``finish()``.  ``fold=False`` folds

@@ -13,53 +13,25 @@ non-sentinel keys ascending into ``cap`` lanes.
   version (the logic of ``engine._sort_count_compact``).
 
 The kernel library is built with ``nvcc`` into ``gossamer_tpu_torch/_build``
-at first use and bound with ctypes.
+at first use (:mod:`.nvcc`) and bound with ctypes.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
-import os
-import shutil
-import subprocess
-import time
-from pathlib import Path
 
 import torch
+
+from .nvcc import build_library
 
 SENT = (1 << 63) - 1  # sentinel key; above every narrow key (< 2^62)
 M32 = 0xFFFFFFFF
 
-_PKG = Path(__file__).resolve().parents[1]
-_SRC = _PKG / "csrc" / "fold.cu"
-BUILD_DIR = _PKG / "_build"
-NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
-
-
-def build_kernel_library() -> tuple[Path, float, str]:
-    """Compile ``csrc/fold.cu`` -> ``_build/libgossfold.so`` when missing or
-    older than its source.  Returns (path, build seconds, compiler output);
-    seconds is 0.0 when the library was already current."""
-    so = BUILD_DIR / "libgossfold.so"
-    if so.exists() and so.stat().st_mtime >= _SRC.stat().st_mtime:
-        return so, 0.0, ""
-    BUILD_DIR.mkdir(exist_ok=True)
-    tmp = BUILD_DIR / f"libgossfold.so.{os.getpid()}.tmp"
-    t0 = time.perf_counter()
-    nvcc = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
-    proc = subprocess.run([nvcc, *NVCC_FLAGS, "-o", str(tmp), str(_SRC)],
-                          capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed on {_SRC.name}:\n{proc.stderr}")
-    os.replace(tmp, so)
-    return so, time.perf_counter() - t0, proc.stderr
-
 
 @functools.cache
 def _kernel_lib() -> ctypes.CDLL:
-    so, _, _ = build_kernel_library()
+    so, _, _ = build_library("fold")
     lib = ctypes.CDLL(str(so))
     vp, ll = ctypes.c_void_p, ctypes.c_longlong
     lib.gossamer_merge_fold.restype = ctypes.c_int

@@ -52,6 +52,11 @@ def report(out=None) -> None:
         out.write(f"{_TOTALS[path]:10.3f}s  {_COUNTS[path]:8d}x  {path}\n")
 
 
+def totals() -> dict[str, float]:
+    """Seconds per call path so far."""
+    return dict(_TOTALS)
+
+
 def reset() -> None:
     _TOTALS.clear()
     _COUNTS.clear()

@@ -99,8 +99,7 @@ def test_device_cuda_without_cuda_raises(tiny):
     assert not (tmp / "g.header").exists()
 
 
-@pytest.mark.parametrize("kw,msg", [({"canonical": True}, "canonical"),
-                                    ({"n_devices": 2}, "several devices")])
+@pytest.mark.parametrize("kw,msg", [({"n_devices": 2}, "several devices")])
 def test_unported_counting_raises(tiny, kw, msg):
     _tmp, _reads, fa = tiny
     args = dict(both_strands=False, canonical=False, device=torch.device("cpu"),

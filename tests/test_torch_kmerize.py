@@ -87,5 +87,10 @@ def test_window_order_is_natural():
 
 
 def test_canon_ref_not_ported():
-    with pytest.raises(NotImplementedError):
-        canon.canonicalize(torch.zeros(3, dtype=torch.int64), 12, "ref")
+    """Mode "ref" is ported now (tests/test_torch_kmer_set.py holds it
+    against JAX): it is the FNV order; a mode that does not exist raises."""
+    keys = torch.tensor([0, 5, (1 << 24) - 1, 123456])
+    assert torch.equal(canon.canonicalize(keys, 12, "ref"),
+                       canon.canon_ref(keys, 12))
+    with pytest.raises(ValueError, match="not in"):
+        canon.canonicalize(keys, 12, "fnv")
