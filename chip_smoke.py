@@ -11,8 +11,13 @@
 3. Kernel phases: each kernel against its plain PyTorch version on the
    card, exactly, on edge cases and at the path's shape (the merge-fold: a
    22M-key spectrum at the CLI's default cap and a batch of 8 x 2^22
-   lanes; the merge: the same spectrum and a sorted batch of 8 x 2^22
-   lanes), both timed with CUDA events.
+   lanes, four seeds, twice each; the merge: the same spectrum and a
+   sorted batch of 8 x 2^22 lanes, and the classify join's shape), both
+   timed with CUDA events.  The fold's edge cases sit on its tile
+   boundaries (groups over several tiles, tiles without a group end,
+   lengths one off a tile multiple, runs that start 8 bytes into a
+   16-byte piece); input out of order in one run only must give
+   ``live = -1``.
 4. build-graph phase: a seeded E. coli-scale read set (4.6 Mbp random
    genome, 30x coverage of 100 bp reads, 0.5% substitutions, a few reads
    with N) goes through the port's CLI, ``build-graph -k 25 --device
@@ -26,7 +31,10 @@
    ``xenome index -K 25`` and ``xenome classify``.  The index must equal a
    numpy oracle, the device near-k-mer pass must equal the host version on
    200 kbp prefixes, and the first 20k reads' classes a per-read oracle.
-6. Prints one JSON line with both kernels, then ``{"ok": true, ...}``.
+6. Prints for each kernel its bound (every input byte read once and every
+   output byte written once at the card's memory rate), its time, its
+   share of the bound and its launches on each path, then one JSON line
+   with both kernels, then ``{"ok": true, ...}``.
 
 Each path runs with every kernel's launch count set to 0 just before it
 and read just after; a kernel the path runs must have launched.  Any failed
@@ -86,6 +94,35 @@ def time_ms(fn, reps: int = 10) -> float:
     return start.elapsed_time(end) / reps
 
 
+# Published peaks of one H100 SXM (NVIDIA's data sheet): device memory
+# 3.35 TB/s; 67 TFLOP/s outside the tensor cores, taken for the kernels'
+# compare-and-add arithmetic.
+PEAK_BYTES_PER_S = 3.35e12
+PEAK_OPS_PER_S = 67e12
+
+
+def bound(nbytes: int, ops: int) -> dict:
+    """The least time the card could take: every input byte read once and
+    every output byte written once at the memory rate, or the operations at
+    the peak rate, whichever is longer."""
+    by_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+    by_ops = ops / PEAK_OPS_PER_S * 1e3
+    return {"bound_ms": max(by_bytes, by_ops), "bytes": nbytes,
+            "bound_by": "bytes" if by_bytes >= by_ops else "operations"}
+
+
+def fold_bound(na: int, nb: int, cap: int) -> dict:
+    """merge_fold reads 16 B a lane of A and B and writes 16 B a lane of
+    the ``cap`` output lanes and ``live``; one comparison and one addition
+    a merged lane."""
+    return bound((na + nb + cap) * 16 + 8, 2 * (na + nb))
+
+
+def merge_bound(na: int, nb: int) -> dict:
+    """merge_sorted reads and writes 16 B a lane; one comparison a lane."""
+    return bound(2 * (na + nb) * 16, na + nb)
+
+
 def fold_pair(a, ac, b, bc, cap):
     """(kernel result, plain result, max abs difference) on the card."""
     import torch
@@ -100,62 +137,15 @@ def fold_pair(a, ac, b, bc, cap):
     return got, want, err
 
 
-def fold_phase(dev, smi: str) -> dict:
+def fold_path_inputs(dev, seed: int):
+    """A and B at the shape build-graph gives the fold: the spectrum at the
+    default cap holding 22M keys; a batch of 8 x 2^22 lanes, ~3/4 valid
+    (read separators), most keys already in the spectrum."""
     import torch
 
-    from gossamer_tpu_torch.ops import fold
+    from gossamer_tpu_torch.ops.fold import SENT
 
-    SENT = fold.SENT
-    rng = np.random.default_rng(1)
-
-    def t(x):
-        return torch.as_tensor(np.asarray(x, np.int64), device=dev)
-
-    def spectrum(keys, total):
-        keys = np.unique(keys)
-        k = np.full(total, SENT, np.int64)
-        c = np.zeros(total, np.int64)
-        k[: len(keys)] = keys
-        c[: len(keys)] = rng.integers(1, 1 << 32, len(keys))
-        return t(k), t(c)
-
-    def batch(keys, total):
-        k = np.full(total, SENT, np.int64)
-        k[: len(keys)] = np.sort(keys)
-        return t(k), t(k != SENT)
-
-    sk = np.unique(rng.integers(0, 1 << 50, 30000))
-    cases = {
-        "group spanning block boundaries": (
-            *spectrum(rng.integers(0, 1 << 20, 4000), 4096),
-            *batch(np.full(9000, 777), 10000), 20000),
-        "one key, count wraps mod 2^32": (
-            t(np.full(40000, 42)), t(np.full(40000, 1 << 20)),
-            t(np.full(50000, 42)), t(np.ones(50000)), 1000),
-        "empty batch (0 lanes)": (
-            *spectrum(rng.integers(0, 1 << 50, 3000), 4096),
-            t([]), t([]), 4096),
-        "empty batch (all sentinel)": (
-            *spectrum(rng.integers(0, 1 << 50, 3000), 4096),
-            *batch(np.zeros(0, np.int64), 5000), 4096),
-        "spectrum at exactly cap": (
-            t(sk), t(rng.integers(1, 1000, len(sk))),
-            *batch(sk[rng.integers(0, len(sk), 20000)], 20000), len(sk)),
-        "live > cap": (
-            t(sk), t(rng.integers(1, 1000, len(sk))),
-            *batch(rng.integers(0, 1 << 50, 20000), 20000), len(sk)),
-    }
-    worst = 0
-    for name, (a, ac, b, bc, cap) in cases.items():
-        got, want, err = fold_pair(a, ac, b, bc, cap)
-        check(err == 0, f"kernel == plain, {name} (live {int(got[2])}, "
-                        f"cap {cap})")
-        worst = max(worst, err)
-
-    # the path's shape: the spectrum at the default cap holding 22M keys;
-    # a batch of 8 x 2^22 lanes, ~3/4 valid (read separators), most keys
-    # already in the spectrum
-    g = torch.Generator(device=dev).manual_seed(2)
+    g = torch.Generator(device=dev).manual_seed(seed)
     keys = torch.unique(torch.randint(0, 1 << 52, (22_000_000,), device=dev,
                                       generator=g))
     a = torch.full((CAP,), SENT, dtype=torch.int64, device=dev)
@@ -172,10 +162,142 @@ def fold_phase(dev, smi: str) -> dict:
     b = torch.full((nb,), SENT, dtype=torch.int64, device=dev)
     b[:n_valid] = torch.sort(torch.cat([old, new])).values
     bc = (b != SENT).to(torch.int64)
-    got, _want, err = fold_pair(a, ac, b, bc, CAP)
-    check(err == 0, f"kernel == plain at the path's shape: A {CAP} lanes "
-                    f"({keys.numel()} keys), B {nb} lanes, live {int(got[2])}")
-    worst = max(worst, err)
+    return a, ac, b, bc, keys.numel()
+
+
+def fold_edge_cases(dev, tile: int):
+    """-> (cases the kernel must fold exactly like the plain version,
+    cases whose input is out of order and must give live = -1); each
+    {name: (a_keys, a_counts, b_keys, b_counts, cap)}.  ``tile`` is the
+    kernel's tile in merged lanes."""
+    import torch
+
+    from gossamer_tpu_torch.ops.fold import SENT
+
+    rng = np.random.default_rng(1)
+    T = tile
+
+    def t(x):
+        return torch.as_tensor(np.asarray(x, np.int64), device=dev)
+
+    def spectrum(keys, total):
+        keys = np.unique(keys)
+        k = np.full(total, SENT, np.int64)
+        c = np.zeros(total, np.int64)
+        k[: len(keys)] = keys
+        c[: len(keys)] = rng.integers(1, 1 << 32, len(keys))
+        return t(k), t(c)
+
+    def batch(keys, total=None):
+        k = np.full(len(keys) if total is None else total, SENT, np.int64)
+        k[: len(keys)] = np.sort(keys)
+        return t(k), t(k != SENT)
+
+    def shifted(x):
+        """The same lanes starting 8 bytes into a 16-byte piece."""
+        return torch.cat([x.new_zeros(1), x])[1:]
+
+    none = (t([]), t([]))
+    sk = np.unique(rng.integers(0, 1 << 50, 30000))
+    x = 1 << 30  # one key in the middle of the others
+    below = rng.integers(0, x, T - 5)
+    above = rng.integers(x + 1, 1 << 40, T + 7)
+    cases = {
+        "group spanning block boundaries": (
+            *spectrum(rng.integers(0, 1 << 20, 4000), 4096),
+            *batch(np.full(9000, 777), 10000), 20000),
+        "one key, count wraps mod 2^32": (
+            t(np.full(40000, 42)), t(np.full(40000, 1 << 20)),
+            t(np.full(50000, 42)), t(np.ones(50000)), 1000),
+        "empty batch (0 lanes)": (
+            *spectrum(rng.integers(0, 1 << 50, 3000), 4096), *none, 4096),
+        "empty batch (all sentinel)": (
+            *spectrum(rng.integers(0, 1 << 50, 3000), 4096),
+            *batch(np.zeros(0, np.int64), 5000), 4096),
+        "spectrum at exactly cap": (
+            t(sk), t(rng.integers(1, 1000, len(sk))),
+            *batch(sk[rng.integers(0, len(sk), 20000)]), len(sk)),
+        "live > cap": (
+            t(sk), t(rng.integers(1, 1000, len(sk))),
+            *batch(rng.integers(0, 1 << 50, 20000)), len(sk)),
+        "nothing to fold (0 lanes, cap 0)": (*none, *none, 0),
+        "a tile with no group end between two tiles that have one": (
+            *none, *batch(np.concatenate([below, np.full(2 * T + 10, x),
+                                          above])), 3 * T),
+        "a group over more than two tiles whose count wraps": (
+            t(np.concatenate([np.sort(below), np.full(3 * T + 3, x),
+                              np.sort(above)])),
+            t(np.concatenate([np.ones(T - 5), np.full(3 * T + 3, (1 << 31) + 5),
+                              np.ones(T + 7)])),
+            *batch(np.concatenate([np.full(T, x), above[:100]])), 3 * T),
+        "cap below the first tile's ends": (
+            *spectrum(rng.integers(0, 1 << 50, 3 * T), 3 * T),
+            *batch(rng.integers(0, 1 << 50, 2 * T)), 10),
+        "runs that start 8 bytes into a 16-byte piece": tuple(
+            shifted(v) for v in (
+                *spectrum(rng.integers(0, 1 << 50, 5 * T), 5 * T + 3),
+                *batch(rng.integers(0, 1 << 50, 3 * T + 1)))) + (9 * T,),
+    }
+    for off in (-1, 0, 1):
+        na = 2 * T + 17
+        cases[f"na + nb = 5 tiles {off:+d}"] = (
+            *spectrum(rng.integers(0, 1 << 50, na), na),
+            *batch(rng.integers(0, 1 << 50, 3 * T - 17 + off)), 5 * T + 1)
+
+    up = np.arange(T)
+    across = np.concatenate([up + 10 * T, up, up + 20 * T])  # T-1 -> T falls
+    inside = np.arange(3 * T)
+    inside[T + 5] = 0
+    some = spectrum(rng.integers(0, 1 << 50, 2 * T), 2 * T)
+    unsorted = {
+        "only B out of order, across a tile boundary (A of 0 lanes)": (
+            *none, t(across), t(np.ones(3 * T)), 4 * T),
+        "only B out of order, across a tile boundary": (
+            *some, t(across), t(np.ones(3 * T)), 6 * T),
+        "only B out of order, inside a tile": (
+            *some, t(inside), t(np.ones(3 * T)), 6 * T),
+        "only A out of order, across a tile boundary (B of 0 lanes)": (
+            t(across), t(np.ones(3 * T)), *none, 4 * T),
+        "only A out of order": (
+            t(across), t(np.ones(3 * T)),
+            *batch(rng.integers(0, 1 << 50, 2 * T)), 6 * T),
+    }
+    return cases, unsorted
+
+
+def fold_phase(dev, smi: str) -> dict:
+    import torch
+
+    from gossamer_tpu_torch.ops import fold
+
+    lib = fold._kernel_lib()
+    tile = lib.gossamer_fold_tile()
+    print(f"merge_fold kernel: tile {tile} lanes, "
+          f"{lib.gossamer_fold_threads()} threads a block, "
+          f"{lib.gossamer_fold_blocks_per_sm()} blocks an SM", flush=True)
+    cases, unsorted = fold_edge_cases(dev, tile)
+    worst = 0
+    for name, (a, ac, b, bc, cap) in cases.items():
+        got, want, err = fold_pair(a, ac, b, bc, cap)
+        check(err == 0, f"kernel == plain, {name} (live {int(got[2])}, "
+                        f"cap {cap})")
+        worst = max(worst, err)
+    for name, (a, ac, b, bc, cap) in unsorted.items():
+        live = int(fold.merge_fold(a, ac, b, bc, cap)[2])
+        check(live == -1, f"kernel reports live = -1, {name}")
+
+    # the path's shape, several seeds: a race in the chained scan would show
+    # as a rare mismatch, not a steady one
+    for seed in (2, 12, 22, 32):
+        a, ac, b, bc, n_keys = fold_path_inputs(dev, seed)
+        nb = b.numel()
+        for _ in range(2):
+            got, _want, err = fold_pair(a, ac, b, bc, CAP)
+            check(err == 0, f"kernel == plain at the path's shape, seed "
+                            f"{seed}: A {CAP} lanes ({n_keys} keys), B {nb} "
+                            f"lanes, live {int(got[2])}")
+            worst = max(worst, err)
+    a, ac, b, bc, n_keys = fold_path_inputs(dev, 2)
 
     def run_kernel():
         fold.merge_fold(a, ac, b, bc, CAP)
@@ -191,12 +313,12 @@ def fold_phase(dev, smi: str) -> dict:
     plain.append(time_ms(run_plain))
     launch_ms = time_ms(run_launch)
     ms, plain_ms = min(kern), min(plain)
-    gbytes = 3 * (CAP + nb) * 16 / 1e9
     print(f"merge_fold at A={CAP} B={nb} lanes on {smi}: wrapper "
           f"{ms:.3f} ms (runs {kern}), kernel launch alone {launch_ms:.3f} ms, "
-          f"plain {plain_ms:.3f} ms (runs {plain}); ~{gbytes:.2f} GB moved "
-          f"-> {gbytes / (launch_ms / 1e3):.0f} GB/s", flush=True)
-    return {"max_abs_err": worst, "ms": ms, "plain_ms": plain_ms}
+          f"plain {plain_ms:.3f} ms (runs {plain})", flush=True)
+    return {"shape": f"A {CAP} lanes ({n_keys} keys), B {nb} lanes, cap {CAP}",
+            "max_abs_err": worst, "ms": ms, "plain_ms": plain_ms,
+            **fold_bound(CAP, nb, CAP), "library_ms": None}
 
 
 def merge_pair(a, av, b, bv):
@@ -281,14 +403,14 @@ def merge_phase(dev, smi: str) -> dict:
         kern = [time_ms(run_kernel), time_ms(run_kernel)]
         plain.append(time_ms(run_plain))
         ms, plain_ms = min(kern), min(plain)
-        gbytes = 2 * (a.numel() + b.numel()) * 16 / 1e9
         print(f"merge_sorted at A={a.numel()} B={b.numel()} lanes ({what}) on "
               f"{smi}: kernel {ms:.3f} ms (runs {kern}), plain {plain_ms:.3f} "
-              f"ms (runs {plain}); {gbytes:.3f} GB moved -> "
-              f"{gbytes / (ms / 1e3):.0f} GB/s", flush=True)
-        return ms, plain_ms
+              f"ms (runs {plain})", flush=True)
+        return {"shape": f"A {a.numel()} lanes, B {b.numel()} lanes ({what})",
+                "ms": ms, "plain_ms": plain_ms,
+                **merge_bound(a.numel(), b.numel()), "library_ms": None}
 
-    ms, plain_ms = timed(a, av, b, bv, "the fold's spectrum and batch")
+    wide = timed(a, av, b, bv, "the fold's spectrum and batch")
 
     # the classify join's shape: the xenome index of the xenome phase
     # (9,182,371 lanes, ids -1) and one batch window of 2^19 query lanes,
@@ -305,8 +427,8 @@ def merge_phase(dev, smi: str) -> dict:
     check(err == 0, f"merge_sorted kernel == plain at the classify join's "
                     f"shape: A {qa.numel()} lanes, B {nq} lanes")
     worst = max(worst, err)
-    timed(qa, qav, qb, qbv, "the classify join")
-    return {"max_abs_err": worst, "ms": ms, "plain_ms": plain_ms}
+    join = timed(qa, qav, qb, qbv, "the classify join")
+    return {"max_abs_err": worst, **join}, wide
 
 
 # ------------------------------------------------------------- slice phase
@@ -726,20 +848,36 @@ def main() -> int:
                         if "registers" in line), flush=True)
 
     fold_stats = fold_phase(dev, smi)
-    merge_stats = merge_phase(dev, smi)
+    merge_stats, merge_wide = merge_phase(dev, smi)
     with tempfile.TemporaryDirectory() as tmp:
         graph_launches = slice_phase(dev, smi, tmp)
         index_launches, classify_launches = xenome_phase(dev, smi, tmp)
 
+    fold_paths = {"build-graph": graph_launches, "xenome index": index_launches}
+    merge_paths = {"xenome classify": classify_launches}
+    for name, st, paths in (("merge_fold", fold_stats, fold_paths),
+                            ("merge_sorted", merge_stats, merge_paths),
+                            ("merge_sorted", merge_wide, {})):
+        print(f"{name} on {smi}, {st['shape']}: bound model "
+              f"{st['bytes']} B (inputs once + outputs once) -> bound "
+              f"{st['bound_ms']:.4f} ms by {st['bound_by']} at "
+              f"{PEAK_BYTES_PER_S / 1e12:.2f} TB/s; kernel {st['ms']:.4f} ms "
+              f"= {st['bytes'] / st['ms'] / 1e6:.0f} GB/s, "
+              f"{100 * st['bound_ms'] / st['ms']:.1f}% of the bound; plain "
+              f"{st['plain_ms']:.3f} ms; no single PyTorch call computes it; "
+              f"launches per path {paths if paths else 'none (not on a path)'}",
+              flush=True)
     print(json.dumps({"kernels": [
         {"name": "merge_fold", "route": "cuda",
          "source": "gossamer_tpu_torch/csrc/fold.cu",
          "replaces": "gossamer_tpu/ops/pallas_fold.py:151",
-         "launches": graph_launches + index_launches, **fold_stats},
+         "launches": graph_launches + index_launches,
+         "launches_per_path": fold_paths, **fold_stats},
         {"name": "merge_sorted", "route": "cuda",
          "source": "gossamer_tpu_torch/csrc/merge.cu",
          "replaces": "gossamer_tpu/ops/pallas_merge.py:116",
-         "launches": classify_launches, **merge_stats}]}), flush=True)
+         "launches": classify_launches,
+         "launches_per_path": merge_paths, **merge_stats}]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -6,11 +6,15 @@ sums the counts of equal keys mod 2^32, and packs the distinct
 non-sentinel keys ascending into ``cap`` lanes.
 
 * CUDA tensors launch ``csrc/fold.cu``, which replaces the Pallas kernel
-  ``pallas_fold._fold_kernel``.  It is bound by device-memory bytes:
-  about three passes over (nA + nB) x 16 B (A and B read twice, the
-  output written once), with no carry between blocks (see the source).
+  ``pallas_fold._fold_kernel``.  It is bound by device-memory bytes and
+  makes one pass: A and B are read once (16 B a lane), merged once, and
+  the output written once; the carry between tiles (group ends so far, the
+  open group's count) travels by a chained scan with look-back, and the
+  kernel checks the order of A and B itself (see the source).  Nothing
+  else runs on the card around the launch.
 * CPU tensors take :func:`merge_fold_reference`, the plain PyTorch
-  version (the logic of ``engine._sort_count_compact``).
+  version (the logic of ``engine._sort_count_compact``), and the order
+  check in PyTorch.
 
 The kernel library is built with ``nvcc`` into ``gossamer_tpu_torch/_build``
 at first use (:mod:`.nvcc`) and bound with ctypes.
@@ -30,15 +34,21 @@ M32 = 0xFFFFFFFF
 
 
 @functools.cache
-def _kernel_lib() -> ctypes.CDLL:
-    so, _, _ = build_library("fold")
+def _kernel_lib(**defines: int) -> ctypes.CDLL:
+    """The kernel library; ``defines`` (``FOLD_THREADS``, ``FOLD_ITEMS``)
+    build and load a variant with another tile, for tuning."""
+    so, _, _ = build_library("fold", defines)
     lib = ctypes.CDLL(str(so))
     vp, ll = ctypes.c_void_p, ctypes.c_longlong
     lib.gossamer_merge_fold.restype = ctypes.c_int
     lib.gossamer_merge_fold.argtypes = [ctypes.c_int, vp, vp, ll, vp, vp, ll,
-                                        ll, vp, vp, vp, vp, vp, vp, vp]
-    lib.gossamer_fold_tile.restype = ctypes.c_int
-    lib.gossamer_fold_tile.argtypes = []
+                                        ll, vp, vp, vp, vp, vp]
+    for name in ("gossamer_fold_tile", "gossamer_fold_threads",
+                 "gossamer_fold_blocks_per_sm", "gossamer_fold_profile_word"):
+        getattr(lib, name).restype = ctypes.c_int
+        getattr(lib, name).argtypes = []
+    lib.gossamer_fold_scratch_words.restype = ll
+    lib.gossamer_fold_scratch_words.argtypes = [ll]
     lib.gossamer_cuda_error_string.restype = ctypes.c_char_p
     lib.gossamer_cuda_error_string.argtypes = [ctypes.c_int]
     return lib
@@ -78,40 +88,42 @@ def merge_fold(a_keys: torch.Tensor, a_counts: torch.Tensor,
     not ascending, and the engine raises when it reads that.
     """
     _check(a_keys, a_counts, b_keys, b_counts, cap)
-    ordered = _is_sorted(a_keys) & _is_sorted(b_keys)
     dev = a_keys.device
     if dev.type == "cpu":
         keys, counts, live = merge_fold_reference(a_keys, a_counts, b_keys,
                                                   b_counts, cap)
-    elif dev.type == "cuda":
-        keys, counts, live = _launch(a_keys, a_counts, b_keys, b_counts, cap)
-    else:
-        raise ValueError(f"merge_fold: no kernel for device {dev}")
-    return keys, counts, torch.where(ordered, live, -1)
+        ordered = _is_sorted(a_keys) & _is_sorted(b_keys)
+        return keys, counts, torch.where(ordered, live, -1)
+    if dev.type == "cuda":
+        return _launch(a_keys, a_counts, b_keys, b_counts, cap)
+    raise ValueError(f"merge_fold: no kernel for device {dev}")
 
 
 merge_fold.launches = 0  # kernel launches, read by chip_smoke.py
 
 
-def _launch(a_keys, a_counts, b_keys, b_counts, cap: int):
-    lib = _kernel_lib()
+def _launch(a_keys, a_counts, b_keys, b_counts, cap: int, lib=None,
+            scratch=None):
+    """Launch the kernel (of ``lib``, a variant from :func:`_kernel_lib`,
+    else the default build).  The scratch (tile splits, the tile counter
+    and the status words of the chained scan) is reset by the kernel; a
+    caller that wants to read it afterwards passes its own."""
+    lib = lib or _kernel_lib()
     dev = a_keys.device
     n = a_keys.numel() + b_keys.numel()
-    tile = lib.gossamer_fold_tile()
-    nblk = -(-n // tile)
     out_keys = torch.empty(cap, dtype=torch.int64, device=dev)
     out_counts = torch.empty(cap, dtype=torch.int64, device=dev)
     live = torch.empty((), dtype=torch.int64, device=dev)
-    blk_sum = torch.empty(nblk, dtype=torch.int32, device=dev)
-    blk_ends = torch.empty(nblk, dtype=torch.int64, device=dev)
-    sbuf = torch.empty(cap, dtype=torch.int32, device=dev)
+    if scratch is None:
+        scratch = torch.empty(lib.gossamer_fold_scratch_words(n),
+                              dtype=torch.int64, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
     err = lib.gossamer_merge_fold(
         dev.index if dev.index is not None else torch.cuda.current_device(),
         a_keys.data_ptr(), a_counts.data_ptr(), a_keys.numel(),
         b_keys.data_ptr(), b_counts.data_ptr(), b_keys.numel(), cap,
         out_keys.data_ptr(), out_counts.data_ptr(), live.data_ptr(),
-        blk_sum.data_ptr(), blk_ends.data_ptr(), sbuf.data_ptr(), stream)
+        scratch.data_ptr(), stream)
     if err != 0:
         msg = lib.gossamer_cuda_error_string(err).decode()
         raise RuntimeError(f"merge_fold kernel launch failed: {msg} ({err})")

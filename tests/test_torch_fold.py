@@ -4,12 +4,22 @@ The port's plain fold (``merge_fold`` on CPU tensors) must equal, exactly,
 the JAX interpret-mode Pallas kernel ``merge_fold_planes`` and the XLA
 sort path ``_sort_count_compact`` on the same inputs, made from a seed
 with numpy and carried across with ``convert.spectrum_from_planes``.
-The CUDA kernel is held against the plain version on the card only.
+The CUDA kernel is held against the plain version on the card only; the
+edge cases the card run uses (``chip_smoke.fold_edge_cases``) go through
+the plain version against the interpret-mode Pallas kernel here, so the
+oracle of the card run is itself held to the JAX package.
 """
+
+import sys
+from pathlib import Path
 
 import numpy as np
 import pytest
 import torch
+
+sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
+
+import chip_smoke  # noqa: E402
 
 from gossamer_tpu.ops.engine import _sort_count_compact
 from gossamer_tpu.ops.pallas_fold import merge_fold_planes
@@ -18,6 +28,10 @@ from gossamer_tpu_torch.convert import planes_from_spectrum, spectrum_from_plane
 from gossamer_tpu_torch.ops.fold import SENT, merge_fold, merge_fold_reference
 
 CPU = torch.device("cpu")
+# the CUDA kernel's default tile in merged lanes (csrc/fold.cu: 128 threads
+# x 27 lanes); the card cases put their group and order faults on its edges
+CARD_TILE = 128 * 27
+CARD_CASES, CARD_UNSORTED = chip_smoke.fold_edge_cases(CPU, CARD_TILE)
 
 
 @pytest.fixture
@@ -127,6 +141,41 @@ def test_fold_flags_unsorted_input():
     assert int(live) == -1
 
 
+@pytest.mark.parametrize("name", list(CARD_UNSORTED))
+def test_fold_flags_input_out_of_order_in_one_run(name):
+    a, ac, b, bc, cap = CARD_UNSORTED[name]
+    assert int(merge_fold(a, ac, b, bc, cap)[2]) == -1
+    # each run on its own: only the one named is at fault
+    asc = [bool((k[1:] >= k[:-1]).all()) for k in (a, b)]
+    assert asc == [name.startswith("only B"), name.startswith("only A")]
+
+
+def padded_planes(keys: torch.Tensor, counts: torch.Tensor):
+    """int64 run -> uint32 planes padded with sentinels to the Pallas
+    kernel's lengths (a nonzero multiple of its TILE)."""
+    l1, l0, c = planes_from_spectrum(keys, counts)
+    total = max(1, -(-len(l1) // TILE)) * TILE
+    out = planes(np.zeros(0, np.int64), np.zeros(0, np.int64), total)
+    for dst, src in zip(out, (l1, l0, c)):
+        dst[: len(src)] = src
+    return out
+
+
+@pytest.mark.parametrize("name", list(CARD_CASES))
+def test_plain_fold_matches_pallas_interpret_on_card_cases(name):
+    a, ac, b, bc, cap = CARD_CASES[name]
+    o1, o0, oc, live = merge_fold_planes(*padded_planes(a, ac),
+                                         *padded_planes(b, bc), True)
+    live = int(live)
+    keys, counts, plive = merge_fold_reference(a, ac, b, bc, cap)
+    assert int(plive) == live
+    kept = min(live, cap)
+    assert np.array_equal(keys.numpy()[:kept], as_keys(o1, o0)[:kept])
+    assert np.array_equal(counts.numpy()[:kept],
+                          np.asarray(oc)[:kept].astype(np.int64))
+    assert (keys[kept:] == SENT).all() and (counts[kept:] == 0).all()
+
+
 def test_fold_rejects_bad_dtype():
     k = torch.tensor([1, 2], dtype=torch.int32)
     with pytest.raises(ValueError, match="int64"):
@@ -151,3 +200,20 @@ def test_kernel_matches_plain_on_card(case, cuda_device):
     want = port_fold(a, b, cap, merge_fold_reference, cuda_device)
     assert got[2] == want[2]
     assert np.array_equal(got[0], want[0]) and np.array_equal(got[1], want[1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", list(CARD_CASES))
+def test_kernel_matches_plain_on_card_cases(name, cuda_device):
+    a, ac, b, bc, cap = chip_smoke.fold_edge_cases(cuda_device, CARD_TILE)[0][name]
+    got = merge_fold(a, ac, b, bc, cap)
+    want = merge_fold_reference(a, ac, b, bc, cap)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", list(CARD_UNSORTED))
+def test_kernel_flags_input_out_of_order_on_card(name, cuda_device):
+    a, ac, b, bc, cap = chip_smoke.fold_edge_cases(cuda_device, CARD_TILE)[1][name]
+    assert int(merge_fold(a, ac, b, bc, cap)[2]) == -1
