@@ -1,6 +1,8 @@
 #!/usr/bin/env python3
-"""Smoke run of the PyTorch port on one CUDA card: ``goss build-graph``,
-``xenome index`` + ``xenome classify``, and both hand-written kernels.
+"""Smoke run of the PyTorch port on one CUDA card: ``goss build-graph`` (narrow
+and wide keys), ``xenome index`` + ``classify`` (narrow and wide), the two-sort
+periodic classify engine, ``electus index`` + ``classify``, and both
+hand-written kernels.
 
     python3 chip_smoke.py
 
@@ -18,28 +20,41 @@
    lengths one off a tile multiple, runs that start 8 bytes into a
    16-byte piece); input out of order in one run only must give
    ``live = -1``.
-4. build-graph phase: a seeded E. coli-scale read set (4.6 Mbp random
-   genome, 30x coverage of 100 bp reads, 0.5% substitutions, a few reads
-   with N) goes through the port's CLI, ``build-graph -k 25 --device
-   cuda``.  The graph must hold 2 x the valid 26-mer windows counted on the
-   host, be closed under reverse complement, equal the same count with the
-   plain fold, and, on the first 20k reads, equal a numpy oracle.
-5. xenome phase at bacterial scale: two seeded 4.6 Mbp references sharing
-   a 20 kbp segment (0.5% substitutions in the host's copy), 1M reads of
+4. build-graph: a seeded E. coli-scale read set (4.6 Mbp random genome, 30x
+   coverage of 100 bp reads, 0.5% substitutions, a few reads with N) goes
+   through the port's CLI, ``build-graph -k 25 --device cuda``.  The graph
+   must hold 2 x the valid 26-mer windows counted on the host, be closed
+   under reverse complement, equal the same count with the plain fold, and,
+   on the first 20k reads, equal a numpy oracle.
+5. Wide build-graph: the same read set, ``build-graph -k 55`` (112-bit
+   keys, the wide engine: PyTorch ops, no kernel launch).  The same checks
+   with 128-bit keys as two uint64; then the device time of one wide flush.
+6. xenome at bacterial scale: two seeded 4.6 Mbp references sharing a
+   20 kbp segment (0.5% substitutions in the host's copy), 1M reads of
    100 bp (45% graft, 45% host, 5% the segment, 5% random; 0.5%
    substitutions; one read in 1000 with an N) through the port's CLI,
    ``xenome index -K 25`` and ``xenome classify``.  The index must equal a
    numpy oracle, the device near-k-mer pass must equal the host version on
    200 kbp prefixes, and the first 20k reads' classes a per-read oracle.
-6. Prints for each kernel its bound (every input byte read once and every
-   output byte written once at the card's memory rate), its time, its
-   share of the bound and its launches on each path, then one JSON line
-   with both kernels, then ``{"ok": true, ...}``.
+7. periodic2: the first 200,000 N-free reads through
+   ``classify_periodic_stream2`` and ``classify_codes_device`` on the K 25
+   index, in turns: equal classes, reads/s of each.
+8. Wide xenome: the same references and reads, ``xenome index -K 40`` and
+   ``classify`` (the wide classifier: PyTorch ops, no kernel launch), the
+   same oracles with 128-bit keys.
+9. electus: four seeded 4.6 Mbp references (the two above and two more),
+   ``electus index -K 25`` and ``electus classify`` of 500,000 reads at
+   ``--ref-threshold`` 1 and 2; the matched counts must agree with the files
+   and the first 20k reads' verdicts with a numpy oracle.
+10. Prints for each kernel its bound (every input byte read once and every
+    output byte written once at the card's memory rate), its time, its
+    share of the bound and its launches on each path, then one JSON line
+    with both kernels, then ``{"ok": true, ...}``.
 
 Each path runs with every kernel's launch count set to 0 just before it
-and read just after; a kernel the path runs must have launched.  Any failed
-check raises, and the script exits non-zero.  Without CUDA it exits 2
-before running anything.
+and read just after; a kernel the path runs must have launched, and a wide
+path must have launched none.  Any failed check raises, and the script
+exits non-zero.  Without CUDA it exits 2 before running anything.
 """
 
 from __future__ import annotations
@@ -59,6 +74,9 @@ import numpy as np
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 RHO = 26  # build-graph -k 25
+WIDE_RHO = 56  # build-graph -k 55: 112-bit keys, the wide engine
+XK = 25  # xenome index -K 25
+WIDE_XK = 40  # xenome index -K 40: 82-bit E, the wide classifier
 CAP = (2 << 30) // 48  # the CLI's default cap (-B 2): 44,739,242 keys
 CHUNK = 1 << 22
 BATCH = 8
@@ -431,7 +449,11 @@ def merge_phase(dev, smi: str) -> dict:
     return {"max_abs_err": worst, **join}, wide
 
 
-# ------------------------------------------------------------- slice phase
+# ------------------------------------------------------- inputs and oracles
+ACGTN = np.frombuffer(b"ACGTN", np.uint8)
+U64 = np.uint64
+
+
 def make_reads(rng, genome_len=4_600_000, coverage=30, read_len=100,
                sub_rate=0.005, n_with_n=200):
     """Codes (0-3, 4 = N) of a seeded read set: uint8[n_reads, read_len]."""
@@ -458,7 +480,7 @@ def write_fasta(path: str, reads: np.ndarray) -> None:
     for j in range(7):
         rec[:, 2 + j] = ord("0") + (idx // 10 ** (6 - j)) % 10
     rec[:, 9] = ord("\n")
-    rec[:, 10 : 10 + length] = np.frombuffer(b"ACGTN", np.uint8)[reads]
+    rec[:, 10 : 10 + length] = ACGTN[reads]
     rec[:, -1] = ord("\n")
     rec.tofile(path)
 
@@ -473,16 +495,71 @@ def valid_windows(reads: np.ndarray, rho: int) -> int:
     return len(reads) * per_read - (len(has_n) * per_read - int(ok.sum()))
 
 
+def window_keys(codes: np.ndarray, k: int):
+    """k-windows of the last axis as 128-bit keys -> (lo, hi uint64, valid:
+    no code >= 4).  ``hi`` stays 0 up to k = 32."""
+    n_win = codes.shape[-1] - k + 1
+    lo = np.zeros(codes.shape[:-1] + (n_win,), U64)
+    hi = np.zeros_like(lo)
+    valid = np.ones(lo.shape, bool)
+    for j in range(k):
+        b = codes[..., j : j + n_win]
+        valid &= b < 4
+        hi = (hi << U64(2)) | (lo >> U64(62))
+        lo = (lo << U64(2)) | (b & 3).astype(U64)
+    return lo, hi, valid
+
+
+def unique128(lo: np.ndarray, hi: np.ndarray, return_counts: bool = False):
+    """Sorted distinct 128-bit keys (and how often each occurs)."""
+    if not hi.any():
+        u = np.unique(lo, return_counts=return_counts)
+        u = u if return_counts else (u,)
+        return (u[0], np.zeros_like(u[0]), *u[1:])
+    order = np.lexsort((lo, hi))
+    lo, hi = lo[order], hi[order]
+    new = np.ones(len(lo), bool)
+    new[1:] = (lo[1:] != lo[:-1]) | (hi[1:] != hi[:-1])
+    if not return_counts:
+        return lo[new], hi[new]
+    first = np.nonzero(new)[0]
+    return lo[new], hi[new], np.diff(np.append(first, len(lo)))
+
+
+def lookup128(set_lo, set_hi, qlo, qhi) -> np.ndarray:
+    """Index in the sorted distinct set of each query, -1 where absent."""
+    n, m = len(set_lo), len(qlo)
+    if not set_hi.any() and not qhi.any():
+        r = np.minimum(np.searchsorted(set_lo, qlo), n - 1)
+        return np.where(set_lo[r] == qlo, r, -1)
+    lo = np.concatenate([set_lo, qlo])
+    hi = np.concatenate([set_hi, qhi])
+    tag = np.concatenate([np.zeros(n, np.uint8), np.ones(m, np.uint8)])
+    order = np.lexsort((tag, lo, hi))
+    is_set = order < n
+    last = np.maximum.accumulate(np.where(is_set, order, -1))
+    at = np.maximum(last, 0)
+    match = (~is_set & (last >= 0) & (set_lo[at] == lo[order])
+             & (set_hi[at] == hi[order]))
+    out = np.full(m, -1, np.int64)
+    out[order[~is_set] - n] = np.where(match, last, -1)[~is_set]
+    return out
+
+
+def normalized(lo: np.ndarray, hi: np.ndarray, k: int):
+    from gossamer_tpu_torch.core import kmer as K
+
+    return K.normalize(lo, hi, k)[:2]
+
+
 def oracle_spectrum(reads: np.ndarray, rho: int):
-    """Both orientations of every valid window, counted with np.unique."""
-    keys = []
+    """Both orientations of every valid window, counted: (lo, hi, counts)."""
+    los, his = [], []
     for seq in (reads, 3 - reads[:, ::-1]):
-        win = np.lib.stride_tricks.sliding_window_view(seq, rho, axis=1)
-        k = np.zeros(win.shape[:2], np.uint64)
-        for j in range(rho):
-            k = (k << np.uint64(2)) | (win[..., j] & 3).astype(np.uint64)
-        keys.append(k[(win < 4).all(axis=2)])
-    return np.unique(np.concatenate(keys), return_counts=True)
+        lo, hi, valid = window_keys(seq, rho)
+        los.append(lo[valid])
+        his.append(hi[valid])
+    return unique128(np.concatenate(los), np.concatenate(his), True)
 
 
 def read_graph(base: str):
@@ -490,88 +567,141 @@ def read_graph(base: str):
     from gossamer_tpu_torch.io.factory import PhysicalFileFactory
 
     g = Graph.read(base, PhysicalFileFactory())
-    return g.lo, g.counts.astype(np.int64)
+    return g.lo, np.ascontiguousarray(g.hi), g.counts.astype(np.int64)
 
 
-def run_build_graph(fasta: str, out: str, log: str, dev) -> tuple[float, str]:
+def closed_under_rc(lo, hi, counts, rho: int, dev) -> bool:
+    """Every edge's reverse complement is an edge with the same count.  The
+    128-bit order of the reverse complements is taken on the card (two
+    stable ``torch.sort``s); 64-bit keys sort in numpy."""
+    import torch
+
+    from gossamer_tpu_torch.core import kmer as K
+
+    rlo, rhi = K.reverse_complement(lo, hi, rho)
+    if hi.any():
+        t_lo = torch.from_numpy((rlo ^ U64(1 << 63)).view(np.int64)).to(dev)
+        t_hi = torch.from_numpy(rhi.view(np.int64)).to(dev)
+        p1 = torch.sort(t_lo, stable=True).indices
+        p2 = torch.sort(t_hi[p1], stable=True).indices
+        order = p1[p2].cpu().numpy()
+    else:
+        order = np.argsort(rlo)
+    return (np.array_equal(rlo[order], lo) and np.array_equal(rhi[order], hi)
+            and np.array_equal(counts[order], counts))
+
+
+# ------------------------------------------------------- build-graph phases
+def run_build_graph(fasta: str, out: str, log: str, dev, k: int) -> tuple[float, str]:
     from gossamer_tpu_torch.cli.goss import main as goss
 
     t0 = time.perf_counter()
-    rc = goss(["build-graph", "-k", str(RHO - 1), "-I", fasta, "-O", out,
+    rc = goss(["build-graph", "-k", str(k), "-I", fasta, "-O", out,
                "--device", str(dev), "-l", log])
     wall = time.perf_counter() - t0
-    check(rc == 0, f"build-graph exit code 0 ({out})")
+    check(rc == 0, f"build-graph -k {k} exit code 0 ({out})")
     with open(log) as f:
         return wall, f.read()
 
 
-def slice_phase(dev, smi: str, tmp: str) -> int:
+def graph_phase(dev, smi: str, tmp: str, reads, fasta: str, rho: int) -> int:
+    """``build-graph -k rho-1 --device cuda`` on the read set with its
+    checks; -> merge_fold launches.  rho = 26 is the narrow path (the fold
+    kernel), rho = 56 the wide one (PyTorch ops only)."""
     import torch
 
-    from gossamer_tpu_torch.core import kmer as K
     from gossamer_tpu_torch.ops import fold
     from gossamer_tpu_torch.ops.count import count_rho_mers_files
 
-    t0 = time.perf_counter()
-    reads = make_reads(np.random.default_rng(2026))
-    fasta = os.path.join(tmp, "reads.fa")
-    write_fasta(fasta, reads)
-    n_windows = valid_windows(reads, RHO)
-    print(f"read set: {len(reads)} reads x {reads.shape[1]} bp, "
-          f"{os.path.getsize(fasta)} B FASTA, {n_windows} valid {RHO}-mer "
-          f"windows; made in {time.perf_counter() - t0:.1f} s", flush=True)
-
+    wide = 2 * rho > 62
+    n_windows = valid_windows(reads, rho)
+    print(f"build-graph -k {rho - 1}: {n_windows} valid {rho}-mer windows",
+          flush=True)
     torch.cuda.reset_peak_memory_stats(dev)
     fold.merge_fold.launches = 0
-    wall, log = run_build_graph(fasta, os.path.join(tmp, "g"),
-                                os.path.join(tmp, "g.log"), dev)
+    base = os.path.join(tmp, f"g{rho}")
+    wall, log = run_build_graph(fasta, base, base + ".log", dev, rho - 1)
     launches = fold.merge_fold.launches
     peak = torch.cuda.max_memory_allocated(dev)
     print(log, end="", flush=True)
-    check(launches > 0, f"merge_fold kernel launched {launches} times in "
-                        f"build-graph")
+    if wide:
+        check(launches == 0, f"merge_fold launches: {launches} (the wide "
+                             f"count is PyTorch ops, as in the JAX package)")
+    else:
+        check(launches > 0, f"merge_fold kernel launched {launches} times in "
+                            f"build-graph")
     check("\treader: native" in log, "the native reader was used")
-    lo, counts = read_graph(os.path.join(tmp, "g"))
+    lo, hi, counts = read_graph(base)
+    check(bool(hi.any()) == (2 * rho > 64), f"hi plane in use: {2 * rho > 64}")
     inserted = int(counts.sum())
     check(inserted == 2 * n_windows,
           f"sum of counts {inserted} == 2 x {n_windows} valid windows")
-    rlo, _ = K.reverse_complement(lo, np.zeros_like(lo), RHO)
-    order = np.argsort(rlo)
-    check(np.array_equal(rlo[order], lo) and np.array_equal(counts[order], counts),
+    check(closed_under_rc(lo, hi, counts, rho, dev),
           f"spectrum of {len(lo)} edges closed under reverse complement")
 
-    phases = json.loads(log.split("phases (s) ")[1].splitlines()[0])
+    line = log.split("count: ")[1].splitlines()[0]
+    spills = int(line.split(" chunks, ")[1].split(" spills")[0])
+    phases = json.loads(line.split("phases (s) ")[1])
     count_s = sum(phases.values())
-    print(f"build-graph -k {RHO - 1} on {smi}: {inserted} rho-mers, "
+    print(f"build-graph -k {rho - 1} on {smi}: {inserted} rho-mers, "
           f"{len(lo)} distinct, wall {wall:.3f} s, count {count_s:.3f} s "
           f"-> {inserted / count_s:.0f} rho-mers/s counted, "
-          f"{inserted / wall:.0f} rho-mers/s end to end; phases {phases}; "
-          f"peak device memory {peak / 2**30:.2f} GiB", flush=True)
+          f"{inserted / wall:.0f} rho-mers/s end to end; {spills} spills; "
+          f"phases {phases}; peak device memory {peak / 2**30:.2f} GiB",
+          flush=True)
 
-    t0 = time.perf_counter()
-    plo, _phi, pc = count_rho_mers_files(
-        [fasta], RHO, both_strands=True, canonical=False, device=dev,
-        chunk=CHUNK, cap_entries=CAP, threads=4, fold=False)
-    plain_s = time.perf_counter() - t0
-    check(np.array_equal(plo, lo) and np.array_equal(pc, counts),
-          f"spectrum == the plain-fold count on the same card "
-          f"({plain_s:.3f} s for its count)")
+    if not wide:
+        t0 = time.perf_counter()
+        plo, _phi, pc = count_rho_mers_files(
+            [fasta], rho, both_strands=True, canonical=False, device=dev,
+            chunk=CHUNK, cap_entries=CAP, threads=4, fold=False)
+        plain_s = time.perf_counter() - t0
+        check(np.array_equal(plo, lo) and np.array_equal(pc, counts),
+              f"spectrum == the plain-fold count on the same card "
+              f"({plain_s:.3f} s for its count)")
 
     head = reads[:20000]
     small = os.path.join(tmp, "head.fa")
     write_fasta(small, head)
-    run_build_graph(small, os.path.join(tmp, "h"), os.path.join(tmp, "h.log"),
-                    dev)
-    hlo, hc = read_graph(os.path.join(tmp, "h"))
-    olo, oc = oracle_spectrum(head, RHO)
-    check(np.array_equal(hlo, olo) and np.array_equal(hc, oc),
+    hbase = os.path.join(tmp, f"h{rho}")
+    run_build_graph(small, hbase, hbase + ".log", dev, rho - 1)
+    hlo, hhi, hc = read_graph(hbase)
+    olo, ohi, oc = oracle_spectrum(head, rho)
+    check(np.array_equal(hlo, olo) and np.array_equal(hhi, ohi)
+          and np.array_equal(hc, oc),
           f"first 20k reads: {len(hlo)} edges == numpy oracle")
     return launches
 
-# ------------------------------------------------------------ xenome phase
-XK = 25  # xenome index -K 25
+
+def wide_flush_ms(dev, smi: str, rho: int) -> None:
+    """Device time of one wide flush at the CLI's shape: 8 chunks of 2^22
+    windows folded into a spectrum of CAP lanes that holds one earlier
+    batch (CUDA events)."""
+    import torch
+
+    from gossamer_tpu_torch.ops import engine_wide as ew
+
+    g = torch.Generator(device=dev).manual_seed(5)
+
+    def batch():
+        codes = torch.randint(0, 4, (BATCH, CHUNK + rho - 1), device=dev,
+                              generator=g, dtype=torch.uint8)
+        codes[:, ::101] = 255  # read separators
+        return codes
+
+    *spec, live = ew.batch_step_wide(batch(), *ew.empty_spec_wide(CAP, dev),
+                                     rho, "value", CAP)
+    codes = batch()
+    ms = time_ms(lambda: ew.batch_step_wide(codes, *spec, rho, "value", CAP),
+                 reps=3)
+    print(f"one wide flush (rho {rho}, mode value, {BATCH} x {CHUNK} windows "
+          f"into {CAP} lanes holding {int(live)} keys) on {smi}: {ms:.1f} ms "
+          f"of device time", flush=True)
+
+
+# ------------------------------------------------------------ xenome phases
 N_READS = 1_000_000
-ACGTN = np.frombuffer(b"ACGTN", np.uint8)
+CLASSES = ("neither", "both", "ambiguous", "graft", "host")
 
 
 def make_references(rng, length=4_600_000, seg_at=100_000, seg_len=20_000,
@@ -615,37 +745,36 @@ def sample_reads(rng, sources, weights, n, read_len=100, sub_rate=0.005,
     return reads
 
 
-def window_keys(codes: np.ndarray, k: int):
-    """k-windows of the last axis -> (uint64 keys, valid: no code >= 4)."""
-    win = np.lib.stride_tricks.sliding_window_view(codes, k, axis=-1)
-    keys = np.zeros(win.shape[:-1], np.uint64)
-    for j in range(k):
-        keys = (keys << np.uint64(2)) | (win[..., j] & 3).astype(np.uint64)
-    return keys, (win < 4).all(axis=-1)
-
-
-def normalized(keys: np.ndarray, k: int) -> np.ndarray:
-    from gossamer_tpu_torch.core import kmer as K
-
-    return K.normalize(keys, np.zeros_like(keys), k)[0]
+def reference_set(ref: np.ndarray, k: int):
+    """Sorted distinct FNV-normalized k-mers of an N-free reference."""
+    lo, hi, _valid = window_keys(ref, k)
+    return unique128(*normalized(lo, hi, k))
 
 
 def index_oracle(graft, host, k):
     """Union of the FNV-normalized windows of both references + bits."""
-    gs = np.unique(normalized(window_keys(graft, k)[0], k))
-    hs = np.unique(normalized(window_keys(host, k)[0], k))
-    union = np.union1d(gs, hs)
-    return (union, np.isin(union, gs, assume_unique=True),
-            np.isin(union, hs, assume_unique=True))
+    sets = [reference_set(graft, k), reference_set(host, k)]
+    lo = np.concatenate([s[0] for s in sets])
+    hi = np.concatenate([s[1] for s in sets])
+    tag = np.concatenate([np.full(len(s[0]), i, np.uint8)
+                          for i, s in enumerate(sets)])
+    order = np.lexsort((lo, hi))
+    lo, hi, tag = lo[order], hi[order], tag[order]
+    new = np.ones(len(lo), bool)
+    new[1:] = (lo[1:] != lo[:-1]) | (hi[1:] != hi[:-1])
+    idx = np.cumsum(new) - 1
+    bits = np.zeros((2, int(new.sum())), bool)
+    bits[tag, idx] = True
+    return lo[new], hi[new], bits[0], bits[1]
 
 
 def blrg_oracle(reads: np.ndarray, ann) -> np.ndarray:
     """Per-read blrg: each read on its own, windows holding an N skipped."""
-    keys, valid = window_keys(reads, ann.kset.k)
-    row = np.broadcast_to(np.arange(len(reads))[:, None], keys.shape)[valid]
-    nk = normalized(keys[valid], ann.kset.k)
-    r = np.minimum(np.searchsorted(ann.kset.lo, nk), ann.kset.count - 1)
-    hit = ann.kset.lo[r] == nk
+    k = ann.kset.k
+    lo, hi, valid = window_keys(reads, k)
+    row = np.broadcast_to(np.arange(len(reads))[:, None], lo.shape)[valid]
+    r = lookup128(ann.kset.lo, ann.kset.hi, *normalized(lo[valid], hi[valid], k))
+    hit = r >= 0
     r = r[hit]
     cls = (ann.lhs[r].astype(np.uint8) << 1) | ann.rhs[r].astype(np.uint8)
     blrg = np.zeros(len(reads), np.uint8)
@@ -658,13 +787,18 @@ def write_reference(path: str, label: str, codes: np.ndarray) -> None:
         f.write(b">" + label.encode() + b"\n" + ACGTN[codes].tobytes() + b"\n")
 
 
+def fasta_ids(path: str) -> np.ndarray:
+    """The read numbers (labels ``r0000123``) of a FASTA file, in file order."""
+    with open(path, "rb") as f:
+        labels = f.read().split(b"\n")[0::2]
+    return np.array([int(x[2:]) for x in labels if x], np.int64)
+
+
 def output_classes(prefix: str, n: int) -> np.ndarray:
     """Class file (index into CLASSES) of every read the CLI wrote."""
     out = np.full(n, 255, np.uint8)
     for c, name in enumerate(CLASSES):
-        with open(f"{prefix}_{name}.fasta", "rb") as f:
-            labels = f.read().split(b"\n")[0::2]
-        ids = np.array([int(x[2:]) for x in labels if x], np.int64)
+        ids = fasta_ids(f"{prefix}_{name}.fasta")
         check(np.all(np.diff(ids) > 0) and (out[ids] == 255).all(),
               f"{os.path.basename(prefix)}_{name}.fasta: {len(ids)} reads, "
               f"in input order")
@@ -672,10 +806,7 @@ def output_classes(prefix: str, n: int) -> np.ndarray:
     return out
 
 
-CLASSES = ("neither", "both", "ambiguous", "graft", "host")
-
-
-def near_kmers_check(dev, graft, host) -> None:
+def near_kmers_check(dev, graft, host, k: int) -> None:
     """Device compute-near-kmers == the host numpy version on an index of
     200 kbp prefixes of the references."""
     from gossamer_tpu_torch.classify.annotated_set import (
@@ -685,7 +816,7 @@ def near_kmers_check(dev, graft, host) -> None:
     from gossamer_tpu_torch.io.readers import Read
 
     def kset(codes):
-        return build_kmer_set([Read("p", ACGTN[codes].tobytes())], XK,
+        return build_kmer_set([Read("p", ACGTN[codes].tobytes())], k,
                               device=dev)[0]
 
     ann, _ = merge_and_annotate(kset(graft[:200_000]), kset(host[:200_000]))
@@ -698,24 +829,12 @@ def near_kmers_check(dev, graft, host) -> None:
     host_s = time.perf_counter() - t0
     check(n_dev == n_host and n_dev > 0 and np.array_equal(ann.lhs, host_ann.lhs)
           and np.array_equal(ann.rhs, host_ann.rhs),
-          f"200 kbp prefixes ({ann.kset.count} k-mers): device near-k-mers "
+          f"200 kbp prefixes ({ann.kset.count} {k}-mers): device near-k-mers "
           f"({n_dev} marginal, {dev_s:.3f} s) == host numpy ({n_host}, "
           f"{host_s:.3f} s)")
 
 
-def xenome_phase(dev, smi: str, tmp: str) -> tuple[int, int]:
-    """-> (merge_fold launches in ``index``, merge_sorted launches in
-    ``classify``)."""
-    import torch
-
-    from gossamer_tpu_torch.classify.annotated_set import AnnotatedKmerSet
-    from gossamer_tpu_torch.classify.xenome import OUT_CLASS, classify_reads
-    from gossamer_tpu_torch.cli.xenome import main as xenome
-    from gossamer_tpu_torch.io.factory import PhysicalFileFactory
-    from gossamer_tpu_torch.io.readers import Read
-    from gossamer_tpu_torch.ops import fold, merge
-    from gossamer_tpu_torch.utils import profile
-
+def xenome_inputs(tmp: str) -> dict:
     t0 = time.perf_counter()
     rng = np.random.default_rng(2027)
     graft, host, seg = make_references(rng)
@@ -729,28 +848,52 @@ def xenome_phase(dev, smi: str, tmp: str) -> tuple[int, int]:
           f"x {reads.shape[1]} bp ({int((reads == 4).any(axis=1).sum())} with "
           f"an N), {os.path.getsize(r_fa)} B FASTA; made in "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
+    return {"graft": graft, "host": host, "seg": seg, "reads": reads,
+            "g_fa": g_fa, "h_fa": h_fa, "r_fa": r_fa}
 
-    idx = os.path.join(tmp, "idx")
-    log = os.path.join(tmp, "index.log")
+
+def xenome_phase(dev, smi: str, tmp: str, inp: dict, k: int) -> tuple[int, int]:
+    """``xenome index -K k`` and ``classify`` with their checks -> (merge_fold
+    launches in ``index``, merge_sorted launches in ``classify``).  k = 25
+    runs both kernels; k = 40 is the wide path (PyTorch ops only)."""
+    import torch
+
+    from gossamer_tpu_torch.classify.annotated_set import AnnotatedKmerSet
+    from gossamer_tpu_torch.classify.xenome import OUT_CLASS, classify_reads
+    from gossamer_tpu_torch.cli.xenome import main as xenome
+    from gossamer_tpu_torch.io.factory import PhysicalFileFactory
+    from gossamer_tpu_torch.io.readers import Read
+    from gossamer_tpu_torch.ops import fold, merge
+    from gossamer_tpu_torch.utils import profile
+
+    wide = 2 * k + 2 > 62
+    graft, host, reads = inp["graft"], inp["host"], inp["reads"]
+    idx = os.path.join(tmp, f"idx{k}")
+    log = idx + ".log"
     torch.cuda.reset_peak_memory_stats(dev)
     fold.merge_fold.launches = merge.merge_sorted.launches = 0
     t0 = time.perf_counter()
-    rc = xenome(["index", "-K", str(XK), "-G", g_fa, "-H", h_fa, "-P", idx,
-                 "--device", str(dev), "-l", log])
+    rc = xenome(["index", "-K", str(k), "-G", inp["g_fa"], "-H", inp["h_fa"],
+                 "-P", idx, "--device", str(dev), "-l", log])
     index_wall = time.perf_counter() - t0
     index_launches = fold.merge_fold.launches
     index_peak = torch.cuda.max_memory_allocated(dev)
-    check(rc == 0, "xenome index exit code 0")
+    check(rc == 0, f"xenome index -K {k} exit code 0")
     with open(log) as f:
         index_log = f.read()
     print(index_log, end="", flush=True)
-    check(index_launches > 0, f"merge_fold kernel launched {index_launches} "
-                              f"times in xenome index")
+    if wide:
+        check(index_launches == 0, f"merge_fold launches in xenome index -K "
+                                   f"{k}: {index_launches} (wide count)")
+    else:
+        check(index_launches > 0, f"merge_fold kernel launched "
+                                  f"{index_launches} times in xenome index")
 
     ann = AnnotatedKmerSet.read(idx, PhysicalFileFactory())
-    union, lhs_o, rhs_o = index_oracle(graft, host, XK)
-    check(np.array_equal(ann.kset.lo, union) and not ann.kset.hi.any(),
-          f"union of {ann.kset.count} k-mers == numpy oracle")
+    ulo, uhi, lhs_o, rhs_o = index_oracle(graft, host, k)
+    check(np.array_equal(ann.kset.lo, ulo) and np.array_equal(ann.kset.hi, uhi)
+          and bool(uhi.any()) == (k > 32),
+          f"union of {ann.kset.count} {k}-mers == numpy oracle")
     kept = ann.lhs | ann.rhs
     gray = int((~kept).sum())
     check(np.array_equal(ann.lhs[kept], lhs_o[kept])
@@ -759,10 +902,9 @@ def xenome_phase(dev, smi: str, tmp: str) -> tuple[int, int]:
           and f"marginal kmers: {gray}\n" in index_log,
           f"lhs/rhs bits == numpy oracle; the {gray} cleared k-mers were "
           f"exclusive")
-    near_kmers_check(dev, graft, host)
+    near_kmers_check(dev, graft, host, k)
 
-    out_prefix = os.path.join(tmp, "out")
-    log = os.path.join(tmp, "classify.log")
+    out_prefix = os.path.join(tmp, f"out{k}")
     torch.cuda.reset_peak_memory_stats(dev)
     profile.reset()
     profile.enable()
@@ -770,18 +912,23 @@ def xenome_phase(dev, smi: str, tmp: str) -> tuple[int, int]:
     stdout = io.StringIO()
     t0 = time.perf_counter()
     with contextlib.redirect_stdout(stdout):
-        rc = xenome(["classify", "-P", idx, "-I", r_fa,
+        rc = xenome(["classify", "-P", idx, "-I", inp["r_fa"],
                      "--output-filename-prefix", out_prefix,
-                     "--device", str(dev), "-l", log])
+                     "--device", str(dev), "-l", out_prefix + ".log"])
     classify_wall = time.perf_counter() - t0
     classify_launches = merge.merge_sorted.launches
     classify_peak = torch.cuda.max_memory_allocated(dev)
     profile.enable(False)
     phases = profile.totals()
-    check(rc == 0, "xenome classify exit code 0")
+    check(rc == 0, f"xenome classify (K {k}) exit code 0")
     print(stdout.getvalue(), end="", flush=True)
-    check(classify_launches > 0, f"merge_sorted kernel launched "
-                                 f"{classify_launches} times in xenome classify")
+    if wide:
+        check(classify_launches == 0, f"merge_sorted launches in xenome "
+                                      f"classify at K {k}: {classify_launches} "
+                                      f"(the wide join is two stable sorts)")
+    else:
+        check(classify_launches > 0, f"merge_sorted kernel launched "
+                                     f"{classify_launches} times in xenome classify")
     lines = stdout.getvalue().splitlines()
     counts = [int(line.split("\t")[4]) for line in lines[2:18]]
     check(sum(counts) == N_READS, f"class totals sum to {N_READS} reads")
@@ -802,18 +949,182 @@ def xenome_phase(dev, smi: str, tmp: str) -> tuple[int, int]:
                          want_cls),
           f"the CLI wrote each of the first {len(head)} reads to its class file")
 
-    host = {name: phases.get(f"classify/{name}", 0.0)
-            for name in ("encode", "pack", "launch", "wait")}
-    other = classify_wall - sum(host.values())
-    print(f"xenome -K {XK} on {smi}: index {ann.kset.count} k-mers ({gray} "
+    scope = {name: phases.get(f"classify/{name}", 0.0)
+             for name in ("encode", "pack", "launch", "wait")}
+    other = classify_wall - sum(scope.values())
+    print(f"xenome -K {k} on {smi}: index {ann.kset.count} k-mers ({gray} "
           f"marginal), wall {index_wall:.3f} s, peak device memory "
           f"{index_peak / 2**30:.2f} GiB; classify {N_READS} reads, wall "
           f"{classify_wall:.3f} s -> {N_READS / classify_wall:.0f} reads/s; "
-          f"phases (s, host clock): encode {host['encode']:.3f}, pack "
-          f"{host['pack']:.3f}, launch {host['launch']:.3f}, wait for the "
-          f"device {host['wait']:.3f}, other (parse, output) {other:.3f}; "
+          f"phases (s, host clock): encode {scope['encode']:.3f}, pack "
+          f"{scope['pack']:.3f}, launch {scope['launch']:.3f}, wait for the "
+          f"device {scope['wait']:.3f}, other (parse, output) {other:.3f}; "
           f"peak device memory {classify_peak / 2**30:.2f} GiB", flush=True)
     return index_launches, classify_launches
+
+
+# ---------------------------------------------------------- periodic2 phase
+def periodic2_phase(dev, smi: str, tmp: str, inp: dict, k: int,
+                    n_reads: int = 200_000) -> int:
+    """The two-sort periodic engine against the engine the xenome CLI runs,
+    on the first ``n_reads`` N-free reads and the K ``k`` index: equal
+    classes; reads/s of each with the host packing inside the timed call
+    and parsing outside.  -> merge_sorted launches."""
+    import torch
+
+    from gossamer_tpu_torch.classify import device as cd
+    from gossamer_tpu_torch.classify.annotated_set import AnnotatedKmerSet
+    from gossamer_tpu_torch.convert import set_from_u64
+    from gossamer_tpu_torch.io.factory import PhysicalFileFactory
+    from gossamer_tpu_torch.io.stream import pack_chunk
+    from gossamer_tpu_torch.ops import merge
+
+    ann = AnnotatedKmerSet.read(os.path.join(tmp, f"idx{k}"),
+                                PhysicalFileFactory())
+    E = cd.encode_set(ann.kset.lo, ann.lhs, ann.rhs)
+    reads = inp["reads"]
+    clean = reads[~(reads == 4).any(axis=1)][:n_reads]
+    L = clean.shape[1]
+    T = L + 1
+    set_E = set_from_u64(E, dev)
+    prepared = cd.prepare_set_value(E, k, dev)
+    window = max(1 << 22, 1 << int(np.ceil(np.log2(len(E) + 1))))
+    per = window // T
+
+    def chunks():
+        for base in range(0, len(clean), per):
+            grp = clean[base : base + per]
+            flat = np.full(window + k - 1, 255, np.uint8)
+            flat[: len(grp) * T].reshape(len(grp), T)[:, :L] = grp
+            yield pack_chunk(flat, k, window)[0], len(grp)
+
+    engines = {
+        "classify_codes_device": lambda: cd.classify_codes_device(
+            list(clean), set_E, k),
+        "classify_periodic_stream2": lambda: cd.classify_periodic_stream2(
+            chunks(), None, k, window, L, device=dev, prepared=prepared),
+    }
+    merge.merge_sorted.launches = 0
+    seconds = {name: [] for name in engines}
+    out = {}
+    for name in (*engines, *reversed(engines)):  # in turns: a, b, b, a
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out[name] = engines[name]()
+        torch.cuda.synchronize()
+        seconds[name].append(time.perf_counter() - t0)
+    launches = merge.merge_sorted.launches
+    a, b = out["classify_codes_device"], out["classify_periodic_stream2"]
+    check(np.array_equal(a, b) and len(a) == len(clean),
+          f"classify_periodic_stream2 == classify_codes_device on "
+          f"{len(clean)} uniform reads (classes "
+          f"{np.bincount(a, minlength=16).tolist()})")
+    check(np.array_equal(a[:20000], blrg_oracle(clean[:20000], ann)),
+          "their first 20000 reads == per-read numpy oracle")
+    check(launches > 0, f"merge_sorted kernel launched {launches} times by "
+                        f"the two engines")
+    for name, s in seconds.items():
+        print(f"{name} (K {k}, window {window}, {len(clean)} reads, packing "
+              f"inside, parsing outside) on {smi}: {min(s):.3f} s -> "
+              f"{len(clean) / min(s):.0f} reads/s (runs {s})", flush=True)
+    return launches
+
+
+# ------------------------------------------------------------ electus phase
+EK = 25  # electus index -K 25
+E_READS = 500_000
+
+
+def electus_phase(dev, smi: str, tmp: str, inp: dict) -> tuple[int, int]:
+    """``electus index -K 25`` of four 4.6 Mbp references and ``electus
+    classify`` of 500,000 reads at ``--ref-threshold`` 1 and 2 -> (merge_fold
+    launches in ``index``, merge_sorted launches in the first ``classify``)."""
+    import torch
+
+    from gossamer_tpu_torch.cli.electus import main as electus
+    from gossamer_tpu_torch.ops import fold, merge
+
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(2028)
+    refs = [inp["graft"], inp["host"],
+            rng.integers(0, 4, 4_600_000, dtype=np.uint8),
+            rng.integers(0, 4, 4_600_000, dtype=np.uint8)]
+    reads = sample_reads(rng, [*refs, inp["seg"], None],
+                         [0.2, 0.2, 0.2, 0.2, 0.1, 0.1], E_READS)
+    ref_fa = [inp["g_fa"], inp["h_fa"], os.path.join(tmp, "ref2.fa"),
+              os.path.join(tmp, "ref3.fa")]
+    for path, codes in zip(ref_fa[2:], refs[2:]):
+        write_reference(path, os.path.basename(path), codes)
+    r_fa = os.path.join(tmp, "ereads.fa")
+    write_fasta(r_fa, reads)
+    print(f"electus inputs: {len(refs)} x {len(refs[0])} bp references, "
+          f"{len(reads)} reads x {reads.shape[1]} bp; made in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+
+    pfx = os.path.join(tmp, "eidx")
+    torch.cuda.reset_peak_memory_stats(dev)
+    fold.merge_fold.launches = merge.merge_sorted.launches = 0
+    t0 = time.perf_counter()
+    rc = electus(["index", "-K", str(EK), "-P", pfx, "--device", str(dev),
+                  "-l", pfx + ".log"] + [x for p in ref_fa for x in ("-I", p)])
+    index_wall = time.perf_counter() - t0
+    index_launches = fold.merge_fold.launches
+    index_peak = torch.cuda.max_memory_allocated(dev)
+    check(rc == 0, "electus index exit code 0")
+    check(index_launches > 0, f"merge_fold kernel launched {index_launches} "
+                              f"times in electus index")
+
+    # oracle: per-read mask over the references' normalized k-mer sets
+    head = reads[:20000]
+    lo, hi, valid = window_keys(head, EK)
+    row = np.broadcast_to(np.arange(len(head))[:, None], lo.shape)[valid]
+    nlo, nhi = normalized(lo[valid], hi[valid], EK)
+    masks = np.zeros(len(head), U64)
+    for i, ref in enumerate(refs):
+        hit = lookup128(*reference_set(ref, EK), nlo, nhi) >= 0
+        np.bitwise_or.at(masks, row[hit], U64(1 << i))
+    n_refs_hit = np.array([bin(int(m)).count("1") for m in masks])
+
+    matched = {}
+    for t in (1, 2):
+        m, n = (os.path.join(tmp, f"e{t}{x}") for x in "mn")
+        torch.cuda.reset_peak_memory_stats(dev)
+        fold.merge_fold.launches = merge.merge_sorted.launches = 0
+        stdout = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(stdout):
+            rc = electus(["classify", "-P", pfx, "-I", r_fa, "--ref-threshold",
+                          str(t), "--match-prefix", m, "--non-match-prefix", n,
+                          "--device", str(dev)])
+        wall = time.perf_counter() - t0
+        launches = merge.merge_sorted.launches
+        peak = torch.cuda.max_memory_allocated(dev)
+        check(rc == 0, f"electus classify --ref-threshold {t} exit code 0")
+        check(launches > 0, f"merge_sorted kernel launched {launches} times "
+                            f"in electus classify --ref-threshold {t}")
+        n_match, n_non, total = map(int, stdout.getvalue().split())
+        ids = fasta_ids(m + ".fasta")
+        check(total == E_READS == n_match + n_non and len(ids) == n_match
+              and np.all(np.diff(ids) > 0)
+              and len(fasta_ids(n + ".fasta")) == n_non,
+              f"threshold {t}: {n_match} matched + {n_non} not = {total} "
+              f"reads, as the files hold them, in input order")
+        verdict = np.zeros(E_READS, bool)
+        verdict[ids] = True
+        check(np.array_equal(verdict[: len(head)], n_refs_hit >= t),
+              f"threshold {t}: the first {len(head)} reads' verdicts == numpy "
+              f"oracle ({int((n_refs_hit >= t).sum())} matched)")
+        matched[t] = (n_match, launches)
+        print(f"electus classify --ref-threshold {t} on {smi}: {total} reads, "
+              f"wall {wall:.3f} s -> {total / wall:.0f} reads/s; "
+              f"{launches} merge_sorted launches; peak device memory "
+              f"{peak / 2**30:.2f} GiB", flush=True)
+    check(0 < matched[2][0] < matched[1][0] < E_READS,
+          "fewer reads reach two references than one, some reach none")
+    print(f"electus index -K {EK} on {smi}: {len(refs)} references, wall "
+          f"{index_wall:.3f} s, {index_launches} merge_fold launches, peak "
+          f"device memory {index_peak / 2**30:.2f} GiB", flush=True)
+    return index_launches, matched[1][1]
 
 
 def main() -> int:
@@ -826,6 +1137,7 @@ def main() -> int:
     from gossamer_tpu_torch.io import native
     from gossamer_tpu_torch.ops import nvcc
 
+    t_start = time.perf_counter()
     dev = torch.device("cuda", 0)
     smi = card_line()
     print(smi, flush=True)
@@ -847,14 +1159,42 @@ def main() -> int:
         print("\n".join(f"{name}.cu {line}" for line in b[2].splitlines()
                         if "registers" in line), flush=True)
 
-    fold_stats = fold_phase(dev, smi)
-    merge_stats, merge_wide = merge_phase(dev, smi)
-    with tempfile.TemporaryDirectory() as tmp:
-        graph_launches = slice_phase(dev, smi, tmp)
-        index_launches, classify_launches = xenome_phase(dev, smi, tmp)
+    def phase(name, fn, *args):
+        t0 = time.perf_counter()
+        print(f"== {name}", flush=True)
+        out = fn(*args)
+        print(f"== {name}: {time.perf_counter() - t0:.1f} s", flush=True)
+        return out
 
-    fold_paths = {"build-graph": graph_launches, "xenome index": index_launches}
-    merge_paths = {"xenome classify": classify_launches}
+    fold_stats = phase("merge_fold kernel", fold_phase, dev, smi)
+    merge_stats, merge_wide = phase("merge_sorted kernel", merge_phase, dev, smi)
+    fold_paths, merge_paths = {}, {}
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        reads = make_reads(np.random.default_rng(2026))
+        fasta = os.path.join(tmp, "reads.fa")
+        write_fasta(fasta, reads)
+        print(f"read set: {len(reads)} reads x {reads.shape[1]} bp, "
+              f"{os.path.getsize(fasta)} B FASTA; made in "
+              f"{time.perf_counter() - t0:.1f} s", flush=True)
+        fold_paths["build-graph"] = phase(
+            "build-graph -k 25", graph_phase, dev, smi, tmp, reads, fasta, RHO)
+        fold_paths["build-graph -k 55"] = phase(
+            "build-graph -k 55 (wide)", graph_phase, dev, smi, tmp, reads,
+            fasta, WIDE_RHO)
+        phase("one wide flush", wide_flush_ms, dev, smi, WIDE_RHO)
+        del reads
+        inp = xenome_inputs(tmp)
+        fold_paths["xenome index"], merge_paths["xenome classify"] = phase(
+            "xenome -K 25", xenome_phase, dev, smi, tmp, inp, XK)
+        merge_paths["periodic2"] = phase(
+            "periodic2", periodic2_phase, dev, smi, tmp, inp, XK)
+        (fold_paths["xenome index -K 40"],
+         merge_paths["xenome classify -K 40"]) = phase(
+            "xenome -K 40 (wide)", xenome_phase, dev, smi, tmp, inp, WIDE_XK)
+        fold_paths["electus index"], merge_paths["electus classify"] = phase(
+            "electus", electus_phase, dev, smi, tmp, inp)
+
     for name, st, paths in (("merge_fold", fold_stats, fold_paths),
                             ("merge_sorted", merge_stats, merge_paths),
                             ("merge_sorted", merge_wide, {})):
@@ -867,16 +1207,17 @@ def main() -> int:
               f"{st['plain_ms']:.3f} ms; no single PyTorch call computes it; "
               f"launches per path {paths if paths else 'none (not on a path)'}",
               flush=True)
+    print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all", flush=True)
     print(json.dumps({"kernels": [
         {"name": "merge_fold", "route": "cuda",
          "source": "gossamer_tpu_torch/csrc/fold.cu",
          "replaces": "gossamer_tpu/ops/pallas_fold.py:151",
-         "launches": graph_launches + index_launches,
+         "launches": sum(fold_paths.values()),
          "launches_per_path": fold_paths, **fold_stats},
         {"name": "merge_sorted", "route": "cuda",
          "source": "gossamer_tpu_torch/csrc/merge.cu",
          "replaces": "gossamer_tpu/ops/pallas_merge.py:116",
-         "launches": classify_launches,
+         "launches": sum(merge_paths.values()),
          "launches_per_path": merge_paths, **merge_stats}]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -7,10 +7,12 @@ which source(s) each k-mer came from, refined by ``compute-near-kmers``
 (``src/GossCmdComputeNearKmers.cc:58-147``), which clears both bits on
 "marginal" k-mers that have a near neighbour in the opposite class.
 
-:class:`AnnotatedKmerSet` and :func:`merge_and_annotate` are host copies.
-:func:`near_kmers` runs on the torch device of its tensors;
+:class:`AnnotatedKmerSet` and :func:`merge_and_annotate` are host copies
+(any key width).  :func:`near_kmers` (k <= 31, one int64 lane a key) and
+:func:`near_kmers_wide` (k <= 62, the two-lane layout of
+:mod:`..ops.engine_wide`) run on the torch device of their tensors;
 :func:`compute_near_kmers_host` is the JAX package's numpy version, kept
-as the reference the device version is held against.
+as the reference the device versions are held against.
 """
 
 from __future__ import annotations
@@ -92,7 +94,7 @@ def near_kmers(keys: torch.Tensor, lhs: torch.Tensor, rhs: torch.Tensor,
     from ..ops.canon import canon_ref
 
     if 2 * k > 62:
-        raise NotImplementedError(f"wide keys (k={k} > 31) are not ported yet")
+        raise ValueError(f"wide keys (k={k} > 31) go through near_kmers_wide")
     n = keys.numel()
     gray = torch.zeros(n, dtype=torch.bool, device=keys.device)
     excl = torch.nonzero(lhs != rhs).squeeze(1)
@@ -112,15 +114,50 @@ def near_kmers(keys: torch.Tensor, lhs: torch.Tensor, rhs: torch.Tensor,
     return gray
 
 
+def near_kmers_wide(hi: torch.Tensor, lo: torch.Tensor, lhs: torch.Tensor,
+                    rhs: torch.Tensor, k: int,
+                    batch: int = 1 << 22) -> torch.Tensor:
+    """:func:`near_kmers` for keys of up to 124 bits: ``(hi, lo)`` are the
+    set's k-mers as ascending lanes of :mod:`..ops.engine_wide`.  A probe
+    mask has bit offsets below k, so it changes the two low limbs only; each
+    probe's normalized k-mers are looked up by a sort-join against the set
+    (:func:`.device.join_wide`), since ``torch.searchsorted`` has one key."""
+    from ..ops import engine_wide as ew
+    from .device import join_wide
+
+    gray = torch.zeros(hi.numel(), dtype=torch.bool, device=hi.device)
+    excl = torch.nonzero(lhs != rhs).squeeze(1)
+    set_excl = lhs != rhs
+    for s in range(0, excl.numel(), batch):
+        idx = excl[s : s + batch]
+        p3, p2, p1, p0 = ew.from_lanes(hi[idx], lo[idx])
+        x_lhs = lhs[idx]
+        found = torch.zeros_like(x_lhs)
+        for m in _probe_masks(k):
+            y = ew.canon_ref_wide(p3, p2, p1 ^ (m >> 32), p0 ^ (m & ew.M32), k)
+            r = join_wide(hi, lo, *ew.to_lanes(*y))
+            rc = r.clamp(min=0)
+            found |= (r >= 0) & set_excl[rc] & (lhs[rc] != x_lhs)
+        gray[idx] = found
+    return gray
+
+
 def compute_near_kmers(ann: AnnotatedKmerSet, device: torch.device) -> int:
     """Clear both bits on the marginal k-mers of ``ann`` (:func:`near_kmers`
-    on ``device``).  Returns the number of marginal ("gray") k-mers."""
+    or, above k = 31, :func:`near_kmers_wide`, on ``device``).  Returns the
+    number of marginal ("gray") k-mers."""
     ks = ann.kset
-    if ks.count and ks.hi.any():
-        raise NotImplementedError(f"wide keys (k={ks.k} > 31) are not ported yet")
-    keys = torch.from_numpy(ks.lo.view(np.int64)).to(device)
-    gray = near_kmers(keys, torch.from_numpy(ann.lhs).to(device),
-                      torch.from_numpy(ann.rhs).to(device), ks.k).cpu().numpy()
+    lhs = torch.from_numpy(ann.lhs).to(device)
+    rhs = torch.from_numpy(ann.rhs).to(device)
+    if 2 * ks.k <= 62:
+        keys = torch.from_numpy(ks.lo.view(np.int64)).to(device)
+        gray = near_kmers(keys, lhs, rhs, ks.k)
+    else:
+        from ..ops.engine_wide import lanes_from_u64
+
+        gray = near_kmers_wide(*lanes_from_u64(ks.lo, ks.hi, device), lhs,
+                               rhs, ks.k)
+    gray = gray.cpu().numpy()
     ann.lhs = ann.lhs & ~gray
     ann.rhs = ann.rhs & ~gray
     return int(gray.sum())

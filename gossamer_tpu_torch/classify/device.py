@@ -1,8 +1,9 @@
-"""Device-side read classification (the xenome lookup engine) on torch.
+"""Device-side read classification (the xenome and electus lookup engine)
+on torch.
 
-Counterpart of ``gossamer_tpu/classify/device.py`` for narrow keys
-(k <= 30: 2k + 2 <= 62 bits).  The join is the JAX package's sort-join
-with the set kept sorted:
+Counterpart of ``gossamer_tpu/classify/device.py``.  Narrow keys (k <= 30:
+E = (key << 2) | class fits 62 bits) use the JAX package's sort-join with
+the set kept sorted:
 
 1. the annotated set is encoded once as E = (key << 2) | class, sorted
    (an int64 tensor on the device);
@@ -20,6 +21,18 @@ with the set kept sorted:
 Read ids come from the read start offsets of the batch, never from the
 invalid-code positions: an ``N`` inside a read is invalid but does not
 start a read (the JAX package's engines count it as a separator).
+
+:func:`classify_batch_periodic2` is the JAX package's two-sort engine for
+reads of one length: only the valid windows become lanes, and queries are
+canonicalized by value against a set re-represented once by
+:func:`recanon_set_value`.  It joins and aggregates like the other narrow
+engines.
+
+Wide keys (30 < k <= 62) hold E in the two-lane layout of
+:mod:`..ops.engine_wide` (``hi``, ``lo`` with its top bit flipped).  There
+is no two-lane merge kernel: :func:`classify_batch_wide` concatenates set
+and queries, sorts by both lanes (stable, so a set lane precedes the
+queries of its key) and fills forward by the same ``cumsum``.
 """
 
 from __future__ import annotations
@@ -27,7 +40,10 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..core import kmer as K
 from ..ops import device_kmer as dk
+from ..ops import engine_wide as ew
+from ..ops.canon import canon_value
 from ..ops.kmerize import M32, kmerize_packed, kmerize_words
 from ..ops.merge import merge_sorted
 from ..utils import profile
@@ -111,6 +127,57 @@ def classify_batch_periodic(words: torch.Tensor, nwin: int, set_E: torch.Tensor,
     return _classify_join(set_E, qE, q // T, max_reads)
 
 
+def _default_window(codes_list, floor: int) -> int:
+    """The window the JAX package's batching takes: ``floor`` lanes, or the whole input rounded
+    up to a power of two (at least 2^12) when that is smaller."""
+    window = floor
+    if isinstance(codes_list, list):
+        total = sum(len(c) + 1 for c in codes_list)
+        if total < window:
+            window = max(1 << 12, 1 << int(np.ceil(np.log2(max(total, 2)))))
+    return window
+
+
+def _batches(codes_list, window: int, max_reads: int):
+    """Split the reads into batches of at most ``max_reads`` reads and
+    ``window`` codes, separators included."""
+    buf: list[np.ndarray] = []
+    buf_len = 0
+    for c in codes_list:
+        if (buf_len + len(c) + 1 > window or len(buf) >= max_reads) and buf:
+            yield buf
+            buf, buf_len = [], 0
+        buf.append(c)
+        buf_len += len(c) + 1
+    if buf:
+        yield buf
+
+
+def _flat_batch(buf: list[np.ndarray], k: int, window: int):
+    """One batch -> (255-separated codes padded to ``window + k - 1``, the
+    start offset of each read)."""
+    parts = []
+    for c in buf:
+        parts.append(c)
+        parts.append(np.array([255], np.uint8))
+    flat = np.concatenate(parts)
+    pad = window + k - 1 - len(flat)
+    if pad < 0:
+        raise ValueError("batch exceeds window; lower batch size")
+    flat = np.concatenate([flat, np.full(pad, 255, np.uint8)])
+    lens = np.array([len(c) + 1 for c in buf], np.int64)
+    starts = np.concatenate([[0], np.cumsum(lens)[:-1]]).astype(np.int64)
+    return flat, starts
+
+
+def _gather(out_dev, out_counts) -> np.ndarray:
+    """Per-batch device results -> one host array (one copy at the end)."""
+    if not out_dev:
+        return np.zeros(0, np.uint8)
+    with profile.context("classify/wait"):
+        return torch.cat([b[:n] for b, n in zip(out_dev, out_counts)]).cpu().numpy()
+
+
 def classify_codes_device(codes_list, set_E: torch.Tensor, k: int,
                           window: int | None = None) -> np.ndarray:
     """Host driver: list of per-read code arrays -> blrg per read (numpy).
@@ -127,38 +194,22 @@ def classify_codes_device(codes_list, set_E: torch.Tensor, k: int,
 
     device = set_E.device
     if window is None:
-        total = sum(len(c) + 1 for c in codes_list) if isinstance(
-            codes_list, list) else None
-        window = max(1 << 22, 1 << int(np.ceil(np.log2(
-            max(int(set_E.shape[0]), 1) + 1))))
-        if total is not None and total < window:
-            window = max(1 << 12, 1 << int(np.ceil(np.log2(max(total, 2)))))
+        window = _default_window(codes_list, max(1 << 22, 1 << int(np.ceil(
+            np.log2(max(int(set_E.shape[0]), 1) + 1)))))
     max_reads = max(256, window // 32)
     packed_ok = window % 16 == 0
     out_dev = []
     out_counts = []
-    buf: list[np.ndarray] = []
-    buf_len = 0
 
     def to_dev(a: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(a).to(device)
 
-    def flush(n_reads):
+    for buf in _batches(codes_list, window, max_reads):
+        n_reads = len(buf)
         with profile.context("classify/pack"):
-            parts = []
-            for c in buf:
-                parts.append(c)
-                parts.append(np.array([255], np.uint8))
-            flat = np.concatenate(parts) if parts else np.zeros(0, np.uint8)
-            pad = window + k - 1 - len(flat)
-            if pad < 0:
-                raise ValueError("batch exceeds window; lower batch size")
-            flat = np.concatenate([flat, np.full(pad, 255, np.uint8)])
-            lens = np.array([len(c) + 1 for c in buf], np.int64)
-            starts = np.concatenate([[0], np.cumsum(lens)[:-1]]).astype(np.int64)
-            L = len(buf[0]) if buf else 0
-            uniform = (packed_ok and buf
-                       and all(len(c) == L for c in buf)
+            flat, starts = _flat_batch(buf, k, window)
+            L = len(buf[0])
+            uniform = (packed_ok and all(len(c) == L for c in buf)
                        and bool((flat[: n_reads * (L + 1)].reshape(
                            n_reads, L + 1)[:, :L] < 4).all()))
             if packed_ok:
@@ -180,16 +231,230 @@ def classify_codes_device(codes_list, set_E: torch.Tensor, k: int,
                 out_dev.append(classify_batch(to_dev(flat), to_dev(starts),
                                               set_E, k, max_reads))
         out_counts.append(n_reads)
+    return _gather(out_dev, out_counts)
 
-    for c in codes_list:
-        if (buf_len + len(c) + 1 > window or len(buf) >= max_reads) and buf:
-            flush(len(buf))
-            buf, buf_len = [], 0
-        buf.append(c)
-        buf_len += len(c) + 1
-    if buf:
-        flush(len(buf))
-    if not out_dev:
-        return np.zeros(0, np.uint8)
-    with profile.context("classify/wait"):
-        return torch.cat([b[:n] for b, n in zip(out_dev, out_counts)]).cpu().numpy()
+
+# ------------------------------------------- the two-sort periodic engine
+def recanon_set_value(set_E: np.ndarray, k: int) -> np.ndarray:
+    """Re-represent an annotated set's classes by their min-by-value
+    canonical k-mer (numpy uint64 E plane in, the same out, sorted).  Keys
+    stay distinct: each key is one canonical class and this picks the other
+    representative of the same class.  Queries can then be canonicalized
+    with :func:`..ops.canon.canon_value` instead of the FNV order; per-read
+    blrg is the same because membership is class membership."""
+    lo = set_E >> np.uint64(2)
+    cls = set_E & np.uint64(3)
+    rlo, _ = K.reverse_complement(lo, np.zeros_like(lo), k)
+    vlo = np.minimum(lo, rlo)
+    order = np.argsort(vlo, kind="stable")
+    return (vlo[order] << np.uint64(2)) | cls[order]
+
+
+def prepare_set_value(set_E: np.ndarray, k: int,
+                      device: torch.device) -> torch.Tensor:
+    """One-time set prep for :func:`classify_periodic_stream2`: the numpy E
+    plane re-represented by value, as the port's int64 E tensor on
+    ``device``."""
+    from ..convert import set_from_u64
+
+    return set_from_u64(recanon_set_value(np.asarray(set_E), k), device)
+
+
+def classify_batch_periodic2(words: torch.Tensor, n_reads: int,
+                             set_E: torch.Tensor, k: int, max_reads: int,
+                             C: int, T: int) -> torch.Tensor:
+    """Reads of one length at period T (``classify_batch_periodic``'s
+    layout), ``set_E`` from :func:`prepare_set_value` -> blrg
+    uint8[max_reads].  Window validity is a property of the position, so
+    only each read's T - k real windows become query lanes (no sentinel
+    lane rides through the sort), and they are canonicalized by value."""
+    if C % 16 or max_reads * T > C:
+        raise ValueError(f"periodic2 needs C % 16 == 0 and max_reads * T <= C "
+                         f"(C={C}, max_reads={max_reads}, T={T})")
+    keys = kmerize_words(words.to(torch.int64) & M32, k, C)
+    nk = T - k  # valid windows per read
+    q = keys[: max_reads * T].view(max_reads, T)[:, :nk].reshape(-1)
+    rid = torch.arange(max_reads, dtype=torch.int64,
+                       device=words.device).repeat_interleave(nk)
+    qE = torch.where(rid < n_reads, (canon_value(q, k) << 2) | 3, SENT)
+    return _classify_join(set_E, qE, rid, max_reads)
+
+
+def _words_to_dev(words: np.ndarray, device: torch.device) -> torch.Tensor:
+    return torch.from_numpy(np.ascontiguousarray(words, np.uint32)
+                            .view(np.int32)).to(device)
+
+
+def classify_periodic_stream2(chunks, set_E, k: int, window: int,
+                              read_len: int, *, device: torch.device,
+                              prepared: torch.Tensor | None = None) -> np.ndarray:
+    """Device classify over words-only chunks of reads of one length, through
+    :func:`classify_batch_periodic2`.
+
+    ``chunks``: iterable of ``(words, n_reads)``: whole reads of ``read_len``
+    bases at period ``read_len + 1`` packed as ``io.stream.pack_chunk`` packs
+    them (what the separator cells hold does not matter).  ``set_E``: the
+    annotated set's numpy E plane in any canonical representation; pass
+    ``prepared=prepare_set_value(...)`` to reuse the prep across calls.
+    Returns blrg per read in stream order."""
+    T = read_len + 1
+    max_reads = window // T
+    if prepared is None:
+        prepared = prepare_set_value(set_E, k, device)
+    out_dev = []
+    out_counts = []
+    for words, n_reads in chunks:
+        if n_reads > max_reads:
+            raise ValueError(f"chunk of {n_reads} reads exceeds the window's "
+                             f"{max_reads}")
+        out_dev.append(classify_batch_periodic2(
+            _words_to_dev(words, prepared.device), int(n_reads), prepared, k,
+            max_reads, window, T))
+        out_counts.append(int(n_reads))
+    return _gather(out_dev, out_counts)
+
+
+def classify_periodic_stream(chunks, set_E: torch.Tensor, k: int, window: int,
+                             read_len: int,
+                             max_reads: int | None = None) -> np.ndarray:
+    """Device classify over words-only ``(words, n_reads)`` chunks of reads
+    of one length (see :func:`classify_periodic_stream2`), through
+    :func:`classify_batch_periodic`; ``set_E`` is the port's E tensor."""
+    T = read_len + 1
+    if max_reads is None:
+        max_reads = max(256, window // 32)
+    out_dev = []
+    out_counts = []
+    for words, n_reads in chunks:
+        if n_reads > max_reads:
+            raise ValueError(f"chunk of {n_reads} reads exceeds max_reads "
+                             f"{max_reads}")
+        nwin = max(0, int(n_reads) * T - k + 1)
+        out_dev.append(classify_batch_periodic(
+            _words_to_dev(words, set_E.device), nwin, set_E, k, max_reads,
+            window, T))
+        out_counts.append(int(n_reads))
+    return _gather(out_dev, out_counts)
+
+
+def classify_packed_stream(chunks, set_E: torch.Tensor, k: int, window: int,
+                           max_reads: int | None = None) -> np.ndarray:
+    """Device classify over pre-packed chunks, through
+    :func:`classify_batch_packed`.
+
+    ``chunks``: iterable of ``(words, inval, starts)``: a 255-separated
+    stream of whole reads padded to ``window`` windows and packed with
+    ``io.stream.pack_chunk``, and the start offset of each read (int64,
+    ascending).  The JAX package's chunks carry a read count instead and
+    take read ids from the invalid codes; the port takes them from the
+    starts, so an ``N`` stays inside its read."""
+    if max_reads is None:
+        max_reads = max(256, window // 32)
+    device = set_E.device
+    out_dev = []
+    out_counts = []
+    for words, inval, starts in chunks:
+        if len(starts) > max_reads:
+            raise ValueError(f"chunk of {len(starts)} reads exceeds max_reads "
+                             f"{max_reads}")
+        out_dev.append(classify_batch_packed(
+            _words_to_dev(words, device),
+            torch.from_numpy(np.asarray(inval, np.uint8)).to(device),
+            torch.from_numpy(np.asarray(starts, np.int64)).to(device),
+            set_E, k, max_reads, window))
+        out_counts.append(len(starts))
+    return _gather(out_dev, out_counts)
+
+
+# ------------------------------------------------------------------ wide keys
+def encode_set_wide(lo, hi, lhs, rhs, k: int):
+    """Annotated wide set (numpy uint64 ``lo``, ``hi`` planes, membership
+    bits) -> ``(e_hi, e_lo)`` numpy uint64 planes of E = (key << 2) | class,
+    sorted, with every class re-represented by its min-by-value k-mer
+    (:func:`recanon_set_value`), so queries skip the FNV hash."""
+    lo = np.asarray(lo, np.uint64)
+    hi = np.asarray(hi, np.uint64)
+    rlo, rhi = K.reverse_complement(lo, hi, k)
+    take = K.less128(rlo, rhi, lo, hi)
+    vlo = np.where(take, rlo, lo)
+    vhi = np.where(take, rhi, hi)
+    order = np.lexsort((vlo, vhi))
+    vlo, vhi = vlo[order], vhi[order]
+    cls = ((np.asarray(lhs, np.uint64) << np.uint64(1))
+           | np.asarray(rhs, np.uint64))[order]
+    return ((vhi << np.uint64(2)) | (vlo >> np.uint64(62)),
+            (vlo << np.uint64(2)) | cls)
+
+
+def join_wide(set_hi: torch.Tensor, set_lo: torch.Tensor, q_hi: torch.Tensor,
+              q_lo: torch.Tensor, low_bits: int = 0) -> torch.Tensor:
+    """Rank in the sorted set (distinct keys, lanes of
+    :mod:`..ops.engine_wide`) of the entry matching each query, -1 where
+    none does.  The ``low_bits`` lowest bits of ``lo`` are ignored in the
+    comparison (a class tag); queries must then carry the highest tag, so
+    that a stable sort puts the set lane first in its key group."""
+    n_set, n_q = set_hi.numel(), q_hi.numel()
+    out = torch.full((n_q + 1,), -1, dtype=torch.int64, device=q_hi.device)
+    if n_set == 0 or n_q == 0:
+        return out[:n_q]
+    src = torch.arange(n_set + n_q, dtype=torch.int64, device=q_hi.device)
+    hi, lo, src = ew.sort_lanes(torch.cat([set_hi, q_hi]),
+                                torch.cat([set_lo, q_lo]), src)
+    is_set = src < n_set
+    # rank of the latest set lane at or before each lane (a cumsum, not a
+    # cummax of codes: torch's cummax scan is ~100x slower on the card)
+    r = torch.cumsum(is_set, 0) - 1
+    rc = r.clamp(min=0)
+    match = (~is_set & (r >= 0) & (set_hi[rc] == hi)
+             & ((set_lo[rc] >> low_bits) == (lo >> low_bits)))
+    out.scatter_(0, torch.where(is_set, n_q, src - n_set),
+                 torch.where(match, r, -1))
+    return out[:n_q]
+
+
+def classify_batch_wide(codes: torch.Tensor, starts: torch.Tensor,
+                        set_hi: torch.Tensor, set_lo: torch.Tensor, k: int,
+                        max_reads: int) -> torch.Tensor:
+    """Wide-key :func:`classify_batch`: codes uint8[W + k - 1] and read start
+    offsets, the set's E lanes (:func:`encode_set_wide` through
+    ``convert.wide_set_from_u64``) -> blrg uint8[max_reads]."""
+    W = codes.shape[0] - k + 1
+    *limbs, valid = ew.kmerize_planes_wide(codes, k)
+    n3, n2, n1, n0 = ew.canon_value_wide(*limbs, k)
+    q_hi, q_lo = ew.to_lanes(((n3 << 2) | (n2 >> 30)) & M32,
+                             ((n2 << 2) | (n1 >> 30)) & M32,
+                             ((n1 << 2) | (n0 >> 30)) & M32,
+                             ((n0 << 2) | 3) & M32)
+    q_hi = torch.where(valid, q_hi, ew.SENT)
+    q_lo = torch.where(valid, q_lo, ew.SENT)
+    r = join_wide(set_hi, set_lo, q_hi, q_lo, low_bits=2)
+    hit = (r >= 0) & valid
+    cls = set_lo[r.clamp(min=0)] & 3 if set_lo.numel() else torch.zeros_like(r)
+    return _agg_blrg(torch.where(hit, _read_ids(starts, W), -1), cls, max_reads)
+
+
+def classify_codes_device_wide(codes_list, set_planes, k: int,
+                               window: int | None = None) -> np.ndarray:
+    """Batching for the wide classifier: list of per-read code arrays ->
+    blrg per read (numpy); ``set_planes`` the set's ``(hi, lo)`` E lanes on
+    the device to run on.  The JAX package's batching: the window is the whole
+    input rounded up to a power of two, between 2^12 and 2^22 lanes, and
+    ``max_reads = window // 32`` (at least 256).  A read longer than the
+    window raises "batch exceeds window"."""
+    set_hi, set_lo = set_planes
+    device = set_hi.device
+    if window is None:
+        window = _default_window(codes_list, 1 << 22)
+    max_reads = max(256, window // 32)
+    out_dev = []
+    out_counts = []
+    for buf in _batches(codes_list, window, max_reads):
+        with profile.context("classify/pack"):
+            flat, starts = _flat_batch(buf, k, window)
+        with profile.context("classify/launch"):
+            out_dev.append(classify_batch_wide(
+                torch.from_numpy(flat).to(device),
+                torch.from_numpy(starts).to(device), set_hi, set_lo, k,
+                max_reads))
+        out_counts.append(len(buf))
+    return _gather(out_dev, out_counts)

@@ -124,27 +124,31 @@ def ann_slices(ann: AnnotatedKmerSet, passes: int) -> list[AnnotatedKmerSet]:
 
 class DeviceClassifier:
     """The slices of an annotated set, each held on ``device`` once as its
-    sorted E tensor (:func:`.device.encode_set`); :meth:`blrg` ORs the
-    slices' results.  Narrow keys only (k <= 30)."""
+    sorted E tensor (:func:`.device.encode_set`; k <= 30) or, for wider
+    keys, as its two E lanes (:func:`.device.encode_set_wide`; k = 31
+    already goes this way, 2k + 2 = 64 bits).  :meth:`blrg` ORs the slices'
+    results."""
 
     def __init__(self, slices: list[AnnotatedKmerSet], device: torch.device):
-        from ..convert import set_from_u64
-        from .device import encode_set
+        from ..convert import set_from_u64, wide_set_from_u64
+        from .device import encode_set, encode_set_wide
 
-        k = slices[0].kset.k
-        if 2 * k + 2 > 62:
-            raise NotImplementedError(f"wide keys (k={k} > 30) are not "
-                                      f"ported yet")
-        self.k = k
-        self.sets = [set_from_u64(encode_set(s.kset.lo, s.lhs, s.rhs), device)
-                     for s in slices]
+        self.k = k = slices[0].kset.k
+        self.wide = 2 * k + 2 > 62
+        if self.wide:
+            self.sets = [wide_set_from_u64(*encode_set_wide(
+                s.kset.lo, s.kset.hi, s.lhs, s.rhs, k), device) for s in slices]
+        else:
+            self.sets = [set_from_u64(encode_set(s.kset.lo, s.lhs, s.rhs), device)
+                         for s in slices]
 
     def blrg(self, codes_list: list[np.ndarray]) -> np.ndarray:
-        from .device import classify_codes_device
+        from .device import classify_codes_device, classify_codes_device_wide
 
-        out = classify_codes_device(codes_list, self.sets[0], self.k)
+        classify = classify_codes_device_wide if self.wide else classify_codes_device
+        out = classify(codes_list, self.sets[0], self.k)
         for s in self.sets[1:]:
-            out = out | classify_codes_device(codes_list, s, self.k)
+            out = out | classify(codes_list, s, self.k)
         return out
 
 

@@ -1,8 +1,9 @@
 """ctypes binding for the native IO library (``native/gossio.cpp``).
 
-Counterpart of ``gossamer_tpu/io/native.py``, narrowed to what
-``goss build-graph`` runs: the packed chunk reader, the symmetric
-expansion and the spill codec.  The library is compiled at first use
+Counterpart of ``gossamer_tpu/io/native.py``, narrowed to what the
+counting engines run: the packed chunk reader (narrow keys), the raw code
+chunk reader (wide keys), the symmetric expansion and the 64-bit and
+128-bit spill codecs.  The library is compiled at first use
 from the checkout's ``native/gossio.cpp`` with the flags of
 ``native/Makefile`` into ``gossamer_tpu_torch/_build/``, so it is always
 built for the machine that loads it.  A checked-in ``native/libgossio.so``
@@ -75,6 +76,9 @@ def _load() -> ctypes.CDLL | NativeUnavailable:
     lib.gossio_next_packed.restype = ctypes.c_long
     lib.gossio_next_packed.argtypes = [ctypes.c_void_p, u32p, u8p,
                                        ctypes.c_long, ctypes.c_int]
+    lib.gossio_next_chunk.restype = ctypes.c_long
+    lib.gossio_next_chunk.argtypes = [ctypes.c_void_p, u8p, ctypes.c_long,
+                                      ctypes.c_int]
     lib.gossio_close.restype = None
     lib.gossio_close.argtypes = [ctypes.c_void_p]
     lib.gossio_eac_encode.restype = ctypes.c_long
@@ -82,6 +86,11 @@ def _load() -> ctypes.CDLL | NativeUnavailable:
     lib.gossio_eac_decode.restype = ctypes.c_long
     lib.gossio_eac_decode.argtypes = [u8p, ctypes.c_long, ctypes.c_long,
                                       u64p, i64p]
+    lib.gossio_eac_encode128.restype = ctypes.c_long
+    lib.gossio_eac_encode128.argtypes = [ctypes.c_long, u64p, u64p, i64p, u8p]
+    lib.gossio_eac_decode128.restype = ctypes.c_long
+    lib.gossio_eac_decode128.argtypes = [u8p, ctypes.c_long, ctypes.c_long,
+                                         u64p, u64p, i64p]
     lib.gossio_expand_symmetric.restype = ctypes.c_long
     lib.gossio_expand_symmetric.argtypes = [ctypes.c_long, u64p, i64p,
                                             ctypes.c_int, u64p, i64p]
@@ -125,6 +134,40 @@ def decode_spill_run(buf: np.ndarray, n: int):
     if got != n:
         raise ValueError("truncated spill run")
     return lo, c
+
+
+def encode_spill_run128(lo: np.ndarray, hi: np.ndarray,
+                        c: np.ndarray) -> np.ndarray:
+    """128-bit-key spill run (ascending by (hi, lo)) -> varint bytes: two
+    delta limbs and the count per record, the reference codec's shape
+    (``src/EdgeAndCount.hh:86-97``)."""
+    lib = load_library()
+    n = len(lo)
+    lo = np.ascontiguousarray(lo, dtype=np.uint64)
+    hi = np.ascontiguousarray(hi, dtype=np.uint64)
+    c = np.ascontiguousarray(c, dtype=np.int64)
+    out = np.empty(30 * max(n, 1), np.uint8)
+    m = lib.gossio_eac_encode128(n, _ptr(lo, ctypes.c_uint64),
+                                 _ptr(hi, ctypes.c_uint64),
+                                 _ptr(c, ctypes.c_int64),
+                                 _ptr(out, ctypes.c_uint8))
+    return out[:m].copy()
+
+
+def decode_spill_run128(buf: np.ndarray, n: int):
+    """Inverse of :func:`encode_spill_run128` -> (lo u64, hi u64, c i64)."""
+    lib = load_library()
+    buf = np.ascontiguousarray(buf, dtype=np.uint8)
+    lo = np.empty(n, np.uint64)
+    hi = np.empty(n, np.uint64)
+    c = np.empty(n, np.int64)
+    got = lib.gossio_eac_decode128(_ptr(buf, ctypes.c_uint8), len(buf), n,
+                                   _ptr(lo, ctypes.c_uint64),
+                                   _ptr(hi, ctypes.c_uint64),
+                                   _ptr(c, ctypes.c_int64))
+    if got != n:
+        raise ValueError("truncated spill run")
+    return lo, hi, c
 
 
 def native_expand_symmetric(lo: np.ndarray, c: np.ndarray, rho: int):
@@ -180,5 +223,35 @@ def _packed_chunks(lib, paths, k, chunk, fmt, threads):
             if n == 0:
                 break
             yield words, inval
+    finally:
+        lib.gossio_close(handle)
+
+
+def native_flat_chunks(
+    paths: list[str], k: int, chunk: int = 1 << 22, fmt: str | None = None,
+    threads: int = 1,
+) -> Iterator[np.ndarray]:
+    """Native equivalent of ``io.stream.flat_code_chunks``: yields uint8
+    arrays of ``chunk + k - 1`` raw codes (255 = separator or invalid base),
+    the last one padded with 255.  Any ``k``; the wide engine's feed, since
+    the packed reader stops at an overlap of 32 bases.  ``threads`` as in
+    :func:`native_packed_chunks`.  Raises :class:`NativeUnavailable` before
+    reading anything when the library is missing."""
+    return _flat_chunks(load_library(), paths, k, chunk, fmt, threads)
+
+
+def _flat_chunks(lib, paths, k, chunk, fmt, threads):
+    arr = (ctypes.c_char_p * len(paths))(*[p.encode() for p in paths])
+    handle = lib.gossio_open(arr, len(paths), FMT_CODE.get(fmt, 0),
+                             max(int(threads), 1))
+    overlap = k - 1
+    try:
+        while True:
+            buf = np.empty(chunk + overlap, dtype=np.uint8)
+            n = lib.gossio_next_chunk(handle, _ptr(buf, ctypes.c_uint8), chunk,
+                                      overlap)
+            if n <= 0:
+                break
+            yield buf
     finally:
         lib.gossio_close(handle)

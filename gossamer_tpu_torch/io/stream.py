@@ -62,8 +62,13 @@ def pack_chunk(codes: np.ndarray, k: int, chunk: int | None = None):
     Returns ``(words, inval)`` per :func:`gossamer_tpu_torch.ops.kmerize.
     kmerize_packed`: uint32 big-endian 2-bit words (base p at bits
     ``[30 - 2*(p % 16), +2)`` of word ``p // 16``) plus the little-endian
-    invalid-code bitmap.
+    invalid-code bitmap.  The format has ``C // 16 + 2`` words, room for an
+    overlap of at most 32 bases: for ``k - 1 > 32`` it raises, and the caller
+    feeds raw codes instead (the wide engine packs them on the device).
     """
+    if k - 1 > 32:
+        raise ValueError(f"pack_chunk: the packed format holds an overlap of "
+                         f"at most 32 bases (k - 1 = {k - 1}); feed raw codes")
     C = chunk if chunk is not None else len(codes) - k + 1
     if C % 16 or len(codes) != C + k - 1:
         raise ValueError(f"pack_chunk: need C % 16 == 0 and C + k - 1 codes "

@@ -1,10 +1,12 @@
-"""K-mer counting drivers: route packed chunk streams into the engine.
+"""K-mer counting entry points: route chunk streams into the engines.
 
-Counterpart of ``gossamer_tpu/ops/count.py`` for narrow keys on one
-device.  Both readers feed one input format: the native reader yields
-packed chunks, and the Python reader's flat code chunks are packed with
-``io.stream.pack_chunk``.  Wide keys (rho > 31) and several devices are
-not ported yet and raise ``NotImplementedError``.
+Counterpart of ``gossamer_tpu/ops/count.py`` on one device.  Narrow keys
+(2*rho <= 62) go through :class:`.engine.SpectrumEngine` as packed chunks:
+the native reader yields them, and the Python reader's flat code chunks
+are packed with ``io.stream.pack_chunk``.  Wide keys (rho <= 63) go through
+:class:`.engine_wide.SpectrumEngineWide` as raw code chunks from either
+reader (the packed format stops at an overlap of 32 bases).  Several
+devices are not ported yet and raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -20,6 +22,7 @@ from ..io.readers import Read
 from ..io.stream import flat_code_chunks, pack_chunk
 from ..utils import profile
 from .engine import SpectrumEngine, narrow_keys
+from .engine_wide import SpectrumEngineWide, wide_keys
 
 U64 = np.uint64
 
@@ -54,13 +57,12 @@ def _check_supported(rho: int, n_devices: int) -> None:
     if n_devices != 1:
         raise NotImplementedError("counting across several devices is not "
                                   "ported yet")
-    if not narrow_keys(rho):
-        raise NotImplementedError(f"wide keys (rho={rho} > 31) are not "
-                                  f"ported yet")
+    if not (narrow_keys(rho) or wide_keys(rho)):
+        raise ValueError(f"rho-mers of {rho} bases do not fit 126 bits")
 
 
 def count_chunks(
-    packed_chunks,
+    chunks,
     rho: int,
     *,
     both_strands: bool,
@@ -73,8 +75,9 @@ def count_chunks(
     n_devices: int = 1,
     fold: bool = True,
 ):
-    """Count over ``(words, inval)`` packed chunks of ``chunk`` windows
-    -> sorted (lo, hi, counts) host arrays.
+    """Count over chunks of ``chunk`` windows -> sorted (lo, hi, counts)
+    host arrays.  Narrow keys take ``(words, inval)`` packed chunks, wide
+    keys uint8 arrays of ``chunk + rho - 1`` raw codes.
 
     ``both_strands`` counts every window and its reverse complement
     (build-graph semantics): canonical classes are counted at half the
@@ -82,12 +85,14 @@ def count_chunks(
     ``canonical`` counts each window's class under the reference's FNV
     order (build-kmer-set semantics, ``src/GossCmdBuildKmerSet.tcc:248-249``).
     ``fold``
-    selects the merge-fold kernel or its plain version (engine argument).
+    selects the merge-fold kernel or its plain version (narrow engine
+    argument; the wide engine has no kernel).
     """
     _check_supported(rho, n_devices)
-    if chunk <= 0 or chunk % 16:
-        raise ValueError(f"packed chunks need a chunk size divisible by 16 "
-                         f"(got {chunk})")
+    narrow = narrow_keys(rho)
+    if chunk <= 0 or (narrow and chunk % 16):
+        raise ValueError(f"need a positive chunk size, for packed chunks "
+                         f"(narrow keys) divisible by 16 (got {chunk})")
     on_spill = None
     if log is not None:
         on_spill = lambda i, n: log(  # noqa: E731
@@ -96,13 +101,20 @@ def count_chunks(
     eng = None
     n_chunks = 0
     t0 = time.perf_counter()
-    for words, inval in packed_chunks:
-        if eng is None:
+    for item in chunks:
+        if eng is None and narrow:
             cap = cap_entries or min(1 << 25, max(1 << 16, 4 * chunk))
             eng = SpectrumEngine(rho, mode, chunk, device, cap=cap,
                                  on_spill=on_spill, fold=fold)
+        elif eng is None:
+            cap = cap_entries or min(1 << 24, max(1 << 16, 4 * chunk))
+            eng = SpectrumEngineWide(rho, mode, chunk, device, cap=cap,
+                                     on_spill=on_spill)
         with profile.context("count/add_chunk"):
-            eng.add_chunk_packed(np.asarray(words), np.asarray(inval))
+            if narrow:
+                eng.add_chunk_packed(np.asarray(item[0]), np.asarray(item[1]))
+            else:
+                eng.add_chunk(np.asarray(item))
         n_chunks += 1
         if progress is not None:
             progress(n_chunks * chunk)
@@ -121,11 +133,12 @@ def count_chunks(
 
 def count_rho_mers(reads: Iterable[Read], rho: int, *, chunk: int = 1 << 22,
                    **kw):
-    """Count rho-mers of a read stream (Python reader; chunks packed with
-    ``pack_chunk``) -> sorted (lo, hi, counts) host arrays."""
-    packed = (pack_chunk(codes, rho, chunk)
-              for codes in flat_code_chunks(reads, rho, chunk=chunk))
-    return count_chunks(packed, rho, chunk=chunk, **kw)
+    """Count rho-mers of a read stream (Python reader; narrow chunks packed
+    with ``pack_chunk``) -> sorted (lo, hi, counts) host arrays."""
+    chunks = flat_code_chunks(reads, rho, chunk=chunk)
+    if narrow_keys(rho):
+        chunks = (pack_chunk(codes, rho, chunk) for codes in chunks)
+    return count_chunks(chunks, rho, chunk=chunk, **kw)
 
 
 def count_rho_mers_files(paths: list[str], rho: int, *, chunk: int = 1 << 22,
@@ -133,13 +146,14 @@ def count_rho_mers_files(paths: list[str], rho: int, *, chunk: int = 1 << 22,
                          **kw):
     """Count straight from files through the native reader; only when the
     native library is unavailable, through the Python parser chain."""
-    from ..io.native import NativeUnavailable, native_packed_chunks
+    from ..io.native import (NativeUnavailable, native_flat_chunks,
+                             native_packed_chunks)
     from ..io.readers import read_files
 
     _check_supported(rho, kw.get("n_devices", 1))
+    reader = native_packed_chunks if narrow_keys(rho) else native_flat_chunks
     try:
-        chunks = native_packed_chunks(paths, rho, chunk=chunk, fmt=fmt,
-                                      threads=threads)
+        chunks = reader(paths, rho, chunk=chunk, fmt=fmt, threads=threads)
     except NativeUnavailable as e:
         if log is not None:
             log("warning", f"reader: python (native library unavailable: {e})")

@@ -44,17 +44,22 @@ def kmerize_words(words: torch.Tensor, rho: int, C: int) -> torch.Tensor:
     return torch.stack(phases, dim=-1).reshape(*words.shape[:-1], C)
 
 
+def windows_without(inv: torch.Tensor, rho: int, C: int) -> torch.Tensor:
+    """0/1 (or bool) flags of the C + rho - 1 codes on the last axis ->
+    bool[..., C]: no flagged code in [p, p + rho)."""
+    cnt = torch.cumsum(inv[..., : C + rho - 1], dim=-1, dtype=torch.int32)
+    hi_cnt = cnt[..., rho - 1 : rho - 1 + C]
+    lo_cnt = torch.cat([torch.zeros_like(cnt[..., :1]), cnt[..., : C - 1]],
+                       dim=-1)
+    return hi_cnt == lo_cnt
+
+
 def window_valid(inval: torch.Tensor, rho: int, C: int) -> torch.Tensor:
     """uint8[..., V] invalid-code bitmap (little-endian, bit p set iff code
     p is not a base) -> bool[..., C]: no invalid code in [p, p + rho)."""
     shifts = torch.arange(8, dtype=torch.uint8, device=inval.device)
     bits = (inval[..., :, None] >> shifts) & 1
-    inv = bits.reshape(*inval.shape[:-1], -1)[..., : C + rho - 1]
-    cnt = torch.cumsum(inv, dim=-1, dtype=torch.int32)
-    hi_cnt = cnt[..., rho - 1 : rho - 1 + C]
-    lo_cnt = torch.cat([torch.zeros_like(cnt[..., :1]), cnt[..., : C - 1]],
-                       dim=-1)
-    return hi_cnt == lo_cnt
+    return windows_without(bits.reshape(*inval.shape[:-1], -1), rho, C)
 
 
 def kmerize_packed(words_i32: torch.Tensor, inval: torch.Tensor, rho: int,

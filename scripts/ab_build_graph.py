@@ -4,7 +4,7 @@
     python3 scripts/ab_build_graph.py OTHER_CHECKOUT [--rounds 2]
 
 Makes the smoke's seeded E. coli-scale read set once, then runs the port's
-``build-graph -k 25 --device cuda`` on it from this checkout and from
+``build-graph -k K --device cuda`` (``--kmer-size``, default 25) on it from this checkout and from
 ``OTHER_CHECKOUT`` (say, the parent commit unpacked with ``git archive``) in
 the order this, other, other, this, ..., each run in a process of its own
 with its native code built anew beforehand.  Prints every run's wall, count time
@@ -29,16 +29,20 @@ sys.path.insert(0, ROOT)
 import chip_smoke  # noqa: E402
 
 RUN = """
-import json, shutil, sys, torch
+import json, shutil, sys, time
 sys.path.insert(0, {root!r})
-import chip_smoke
+from gossamer_tpu_torch.cli.goss import main as goss
 from gossamer_tpu_torch.io import native
 from gossamer_tpu_torch.ops import nvcc
 shutil.rmtree(nvcc.BUILD_DIR, ignore_errors=True)  # nothing built elsewhere
 nvcc.build_library("fold")
 native.build_library()
-wall, log = chip_smoke.run_build_graph({fasta!r}, {out!r}, {out!r} + ".log",
-                                       torch.device("cuda", 0))
+t0 = time.perf_counter()
+rc = goss(["build-graph", "-k", "{k}", "-I", {fasta!r}, "-O", {out!r},
+           "--device", "cuda", "-l", {out!r} + ".log"])
+wall = time.perf_counter() - t0
+assert rc == 0
+log = open({out!r} + ".log").read()
 phases = json.loads(log.split("phases (s) ")[1].splitlines()[0])
 print("RESULT " + json.dumps({{"wall": wall, "count": sum(phases.values()),
                               **phases}}))
@@ -49,6 +53,7 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("other")
     ap.add_argument("--rounds", type=int, default=2)
+    ap.add_argument("--kmer-size", type=int, default=chip_smoke.RHO - 1)
     args = ap.parse_args()
     trees = {"this": ROOT, "other": os.path.abspath(args.other)}
     print(chip_smoke.card_line(), flush=True)
@@ -61,7 +66,8 @@ def main() -> int:
             out = os.path.join(tmp, f"g_{name}")
             proc = subprocess.run(
                 [sys.executable, "-c",
-                 RUN.format(root=trees[name], fasta=fasta, out=out)],
+                 RUN.format(root=trees[name], fasta=fasta, out=out,
+                            k=args.kmer_size)],
                 cwd=trees[name], capture_output=True, text=True)
             if proc.returncode != 0:
                 print(proc.stdout + proc.stderr, file=sys.stderr)
@@ -69,10 +75,10 @@ def main() -> int:
             result = [line for line in proc.stdout.splitlines()
                       if line.startswith("RESULT ")][-1]
             print(f"run {n} {name}: {result[7:]}", flush=True)
-        lo_a, c_a = chip_smoke.read_graph(os.path.join(tmp, "g_this"))
-        lo_b, c_b = chip_smoke.read_graph(os.path.join(tmp, "g_other"))
-        chip_smoke.check(np.array_equal(lo_a, lo_b) and np.array_equal(c_a, c_b),
-                         f"both checkouts wrote the same graph ({len(lo_a)} edges)")
+        a = chip_smoke.read_graph(os.path.join(tmp, "g_this"))
+        b = chip_smoke.read_graph(os.path.join(tmp, "g_other"))
+        chip_smoke.check(all(np.array_equal(x, y) for x, y in zip(a, b)),
+                         f"both checkouts wrote the same graph ({len(a[0])} edges)")
     return 0
 
 

@@ -190,8 +190,9 @@ def test_compute_near_kmers_matches_jax():
 
 
 def test_near_kmers_rejects_wide_keys():
+    """The one-lane pass takes k <= 31; wider keys have near_kmers_wide."""
     t = torch.zeros(1, dtype=torch.int64)
-    with pytest.raises(NotImplementedError, match="wide keys"):
+    with pytest.raises(ValueError, match="wide keys"):
         near_kmers(t, t.bool(), t.bool(), 32)
 
 

@@ -110,7 +110,13 @@ def test_unported_counting_raises(tiny, kw, msg):
 
 
 def test_wide_keys_raise(tiny):
-    tmp, _reads, fa = tiny
-    with pytest.raises(NotImplementedError, match="wide keys"):
-        count_rho_mers_files([fa], 41, both_strands=True, canonical=False,
-                             device=torch.device("cpu"), chunk=1024)
+    """Wide keys count up to rho = 63 (126 bits); beyond that they raise."""
+    tmp, reads, fa = tiny
+    kw = dict(both_strands=True, canonical=False, device=torch.device("cpu"),
+              chunk=1024)
+    lo, hi, counts = count_rho_mers_files([fa], 41, **kw)
+    want = spectrum_build_graph(reads, 41)
+    assert {(int(h) << 64) | int(l): int(c)
+            for l, h, c in zip(lo, hi, counts)} == want and hi.any()
+    with pytest.raises(ValueError, match="126 bits"):
+        count_rho_mers_files([fa], 64, **kw)
