@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port on one CUDA card: ``goss build-graph`` (narrow
-and wide keys), ``xenome index`` + ``classify`` (narrow and wide), the two-sort
-periodic classify engine, ``electus index`` + ``classify``, and both
-hand-written kernels.
+and wide keys), the assembler from that graph to contigs, ``xenome index`` +
+``classify`` (narrow and wide), the two-sort periodic classify engine,
+``electus index`` + ``classify``, the taxonomy commands, and both hand-written
+kernels.
 
     python3 chip_smoke.py
 
@@ -14,7 +15,8 @@ hand-written kernels.
    card, exactly, on edge cases and at the path's shape (the merge-fold: a
    22M-key spectrum at the CLI's default cap and a batch of 8 x 2^22
    lanes, four seeds, twice each; the merge: the same spectrum and a
-   sorted batch of 8 x 2^22 lanes, and the classify join's shape), both
+   sorted batch of 8 x 2^22 lanes, the classify join's shape and the rank
+   join's), both
    timed with CUDA events.  The fold's edge cases sit on its tile
    boundaries (groups over several tiles, tiles without a group end,
    lengths one off a tile multiple, runs that start 8 bytes into a
@@ -29,24 +31,41 @@ hand-written kernels.
 5. Wide build-graph: the same read set, ``build-graph -k 55`` (112-bit
    keys, the wide engine: PyTorch ops, no kernel launch).  The same checks
    with 128-bit keys as two uint64; then the device time of one wide flush.
-6. xenome at bacterial scale: two seeded 4.6 Mbp references sharing a
+6. assembly: the ``-k 25`` graph goes through the port's CLI, ``trim-graph``
+   (cutoff inferred by the coverage model), ``prune-tips --iterate 4``,
+   ``pop-bubbles``, ``print-contigs --min-length 100``: host code, as in the
+   JAX package on one device.  The graph must equal a numpy/``torch.unique``
+   count of the whole read set and the trimmed graph that count cut at the
+   logged cutoff; after each stage the graph is closed under reverse
+   complement and lints clean; every 26-mer of every contig is one of the
+   genome's (either strand) and the contigs hold at least 95% of them;
+   ``dump-graph | restore-graph`` gives byte-identical files.
+7. xenome at bacterial scale: two seeded 4.6 Mbp references sharing a
    20 kbp segment (0.5% substitutions in the host's copy), 1M reads of
    100 bp (45% graft, 45% host, 5% the segment, 5% random; 0.5%
    substitutions; one read in 1000 with an N) through the port's CLI,
    ``xenome index -K 25`` and ``xenome classify``.  The index must equal a
    numpy oracle, the device near-k-mer pass must equal the host version on
    200 kbp prefixes, and the first 20k reads' classes a per-read oracle.
-7. periodic2: the first 200,000 N-free reads through
+8. periodic2: the first 200,000 N-free reads through
    ``classify_periodic_stream2`` and ``classify_codes_device`` on the K 25
    index, in turns: equal classes, reads/s of each.
-8. Wide xenome: the same references and reads, ``xenome index -K 40`` and
+9. Wide xenome: the same references and reads, ``xenome index -K 40`` and
    ``classify`` (the wide classifier: PyTorch ops, no kernel launch), the
    same oracles with 128-bit keys.
-9. electus: four seeded 4.6 Mbp references (the two above and two more),
+10. electus: four seeded 4.6 Mbp references (the two above and two more),
    ``electus index -K 25`` and ``electus classify`` of 500,000 reads at
    ``--ref-threshold`` 1 and 2; the matched counts must agree with the files
    and the first 20k reads' verdicts with a numpy oracle.
-10. Prints for each kernel its bound (every input byte read once and every
+11. taxonomy: the four references as four species under two genera (the two
+    that share the segment under one), ``build-kmer-set -k 25`` of all four,
+    ``annotate-kmers``, ``classify-reads`` of the electus phase's 500,000
+    reads: the set and every k-mer's annotation must equal a numpy LCA
+    oracle, the report of the first 20k reads a per-read oracle, the reads
+    drawn from the shared segment must land on the genus, ``merge_sorted``
+    must launch once a batch, and ``join_ranks_batch`` on the card must equal
+    the same call on CPU tensors.
+12. Prints for each kernel its bound (every input byte read once and every
     output byte written once at the card's memory rate), its time, its
     share of the bound and its launches on each path, then one JSON line
     with both kernels, then ``{"ok": true, ...}``.
@@ -446,7 +465,27 @@ def merge_phase(dev, smi: str) -> dict:
                     f"shape: A {qa.numel()} lanes, B {nq} lanes")
     worst = max(worst, err)
     join = timed(qa, qav, qb, qbv, "the classify join")
-    return {"max_abs_err": worst, **join}, wide
+
+    # the rank join's shape: the k-mer set of the taxonomy phase (18,382,323
+    # lanes, payload -1) and one batch of 4096 reads (2^19 query lanes, 3/4
+    # valid, sorted, each carrying its window index)
+    keys = torch.unique(torch.randint(0, 1 << 50, (18_382_323,), device=dev,
+                                      generator=g))
+    ra, rav = keys, torch.full_like(keys, -1)
+    rb = torch.full((nq,), SENT, dtype=torch.int64, device=dev)
+    rb[: nq * 3 // 4] = torch.sort(torch.cat([
+        keys[torch.randint(0, keys.numel(), (nq // 2,), device=dev, generator=g)],
+        torch.randint(0, 1 << 50, (nq * 3 // 4 - nq // 2,), device=dev,
+                      generator=g)])).values
+    rbv = torch.randperm(nq, device=dev, generator=g)
+    _got, err = merge_pair(ra, rav, rb, rbv)
+    check(err == 0, f"merge_sorted kernel == plain at the rank join's shape: "
+                    f"A {ra.numel()} lanes, B {nq} lanes")
+    worst = max(worst, err)
+    rank = timed(ra, rav, rb, rbv, "the rank join of classify-reads")
+    wide["paths"] = "none (not on a path)"
+    rank["paths"] = "classify-reads (counted in the classify join's line)"
+    return {"max_abs_err": worst, **join}, [wide, rank]
 
 
 # ------------------------------------------------------- inputs and oracles
@@ -456,7 +495,8 @@ U64 = np.uint64
 
 def make_reads(rng, genome_len=4_600_000, coverage=30, read_len=100,
                sub_rate=0.005, n_with_n=200):
-    """Codes (0-3, 4 = N) of a seeded read set: uint8[n_reads, read_len]."""
+    """A seeded genome and read set -> (genome codes uint8[genome_len], read
+    codes (0-3, 4 = N) uint8[n_reads, read_len])."""
     genome = rng.integers(0, 4, genome_len, dtype=np.uint8)
     n = genome_len * coverage // read_len
     starts = rng.integers(0, genome_len - read_len, n)
@@ -469,7 +509,7 @@ def make_reads(rng, genome_len=4_600_000, coverage=30, read_len=100,
     flat[pos] = (flat[pos] + rng.integers(1, 4, n_sub, dtype=np.uint8)) % 4
     rows = rng.choice(n, n_with_n, replace=False)
     reads[rows, rng.integers(0, read_len, n_with_n)] = 4
-    return reads
+    return genome, reads
 
 
 def write_fasta(path: str, reads: np.ndarray) -> None:
@@ -721,10 +761,11 @@ def make_references(rng, length=4_600_000, seg_at=100_000, seg_len=20_000,
 
 
 def sample_reads(rng, sources, weights, n, read_len=100, sub_rate=0.005,
-                 n_every=1000):
+                 n_every=1000, with_src=False):
     """uint8[n, read_len] codes (4 = N): reads of the sources (None: random
     sequence) in the given shares, either strand, with substitutions and
-    one N in every ``n_every`` reads."""
+    one N in every ``n_every`` reads.  ``with_src``: also the index of each
+    read's source."""
     src = rng.choice(len(sources), n, p=weights)
     reads = np.empty((n, read_len), np.uint8)
     for i, seq in enumerate(sources):
@@ -742,7 +783,7 @@ def sample_reads(rng, sources, weights, n, read_len=100, sub_rate=0.005,
     flat[pos] = (flat[pos] + rng.integers(1, 4, n_sub, dtype=np.uint8)) % 4
     rows = rng.choice(n, n // n_every, replace=False)
     reads[rows, rng.integers(0, read_len, len(rows))] = 4
-    return reads
+    return (reads, src) if with_src else reads
 
 
 def reference_set(ref: np.ndarray, k: int):
@@ -1049,14 +1090,17 @@ def electus_phase(dev, smi: str, tmp: str, inp: dict) -> tuple[int, int]:
     refs = [inp["graft"], inp["host"],
             rng.integers(0, 4, 4_600_000, dtype=np.uint8),
             rng.integers(0, 4, 4_600_000, dtype=np.uint8)]
-    reads = sample_reads(rng, [*refs, inp["seg"], None],
-                         [0.2, 0.2, 0.2, 0.2, 0.1, 0.1], E_READS)
+    reads, src = sample_reads(rng, [*refs, inp["seg"], None],
+                              [0.2, 0.2, 0.2, 0.2, 0.1, 0.1], E_READS,
+                              with_src=True)
     ref_fa = [inp["g_fa"], inp["h_fa"], os.path.join(tmp, "ref2.fa"),
               os.path.join(tmp, "ref3.fa")]
     for path, codes in zip(ref_fa[2:], refs[2:]):
         write_reference(path, os.path.basename(path), codes)
     r_fa = os.path.join(tmp, "ereads.fa")
     write_fasta(r_fa, reads)
+    inp.update(erefs=refs, eref_fa=ref_fa, ereads=reads, ereads_src=src,
+               er_fa=r_fa)
     print(f"electus inputs: {len(refs)} x {len(refs[0])} bp references, "
           f"{len(reads)} reads x {reads.shape[1]} bp; made in "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
@@ -1080,8 +1124,9 @@ def electus_phase(dev, smi: str, tmp: str, inp: dict) -> tuple[int, int]:
     row = np.broadcast_to(np.arange(len(head))[:, None], lo.shape)[valid]
     nlo, nhi = normalized(lo[valid], hi[valid], EK)
     masks = np.zeros(len(head), U64)
-    for i, ref in enumerate(refs):
-        hit = lookup128(*reference_set(ref, EK), nlo, nhi) >= 0
+    inp["eref_sets"] = [reference_set(ref, EK) for ref in refs]
+    for i, ref_set in enumerate(inp["eref_sets"]):
+        hit = lookup128(*ref_set, nlo, nhi) >= 0
         np.bitwise_or.at(masks, row[hit], U64(1 << i))
     n_refs_hit = np.array([bin(int(m)).count("1") for m in masks])
 
@@ -1127,6 +1172,389 @@ def electus_phase(dev, smi: str, tmp: str, inp: dict) -> tuple[int, int]:
     return index_launches, matched[1][1]
 
 
+# ----------------------------------------------------------- assembly phase
+def both_strands_keys(codes: np.ndarray, k: int) -> np.ndarray:
+    """Sorted distinct k-windows (k <= 32) of an N-free sequence and of its
+    reverse complement."""
+    return np.unique(np.concatenate([window_keys(codes, k)[0],
+                                     window_keys(3 - codes[::-1], k)[0]]))
+
+
+def read_set_spectrum(reads: np.ndarray, rho: int, dev):
+    """:func:`oracle_spectrum` for narrow keys at the full read set: the
+    windows roll along the reads in numpy (one step a base), and the 2 x
+    10^8 keys are sorted and counted by ``torch.unique`` on the card.
+    -> (keys uint64 ascending, counts int64)."""
+    import torch
+
+    n, length = reads.shape
+    n_win = length - rho + 1
+    mask = U64((1 << (2 * rho)) - 1)
+    parts = []
+    for seq in (reads, 3 - reads[:, ::-1]):  # an N (4) becomes 255
+        cur = np.zeros(n, U64)
+        since_bad = np.zeros(n, np.int32)  # valid codes since the last N
+        keys = np.empty((n, n_win), U64)
+        valid = np.empty((n, n_win), bool)
+        for j in range(length):
+            b = seq[:, j]
+            cur = ((cur << U64(2)) | (b & 3).astype(U64)) & mask
+            since_bad = np.where(b < 4, since_bad + 1, 0)
+            if j >= rho - 1:
+                keys[:, j - rho + 1] = cur
+                valid[:, j - rho + 1] = since_bad >= rho
+        parts.append(torch.from_numpy(keys[valid].view(np.int64)).to(dev))
+    keys, counts = torch.unique(torch.cat(parts), return_counts=True)
+    return keys.cpu().numpy().view(U64), counts.cpu().numpy()
+
+
+def read_contigs(path: str) -> list[np.ndarray]:
+    """Base codes of every record of a FASTA file."""
+    lut = np.full(256, 255, np.uint8)
+    lut[np.frombuffer(b"ACGT", np.uint8)] = np.arange(4, dtype=np.uint8)
+    with open(path, "rb") as f:
+        records = f.read().split(b">")[1:]
+    return [lut[np.frombuffer(b"".join(r.split(b"\n")[1:]), np.uint8)]
+            for r in records]
+
+
+def assembly_phase(dev, smi: str, tmp: str, genome, reads, rho: int) -> None:
+    """The assembler from graph to contigs, on the graph of the ``build-graph
+    -k rho-1`` phase: ``trim-graph`` (cutoff inferred), ``prune-tips --iterate
+    4``, ``pop-bubbles``, ``print-contigs --min-length 100``, a ``lint-graph``
+    after each stage, and ``dump-graph | restore-graph`` of the last graph;
+    then the three cleanup stages again after a trim at 2.
+    Host code on the card's machine, as in the JAX package on one device."""
+    from gossamer_tpu_torch.cli.goss import main as goss
+
+    k = rho - 1
+    base = os.path.join(tmp, f"g{rho}")
+    device = ["--device", str(dev)]
+
+    def run(what: str, args: list[str]) -> tuple[float, str]:
+        log = os.path.join(tmp, "asm.log")
+        t0 = time.perf_counter()
+        rc = goss([*args, *device, "-l", log])
+        wall = time.perf_counter() - t0
+        check(rc == 0, f"{what} exit code 0")
+        with open(log) as f:
+            return wall, f.read()
+
+    def graph_checks(name: str, g) -> None:
+        lo, hi, counts = g
+        check(closed_under_rc(lo, hi, counts, rho, dev),
+              f"{name}: {len(lo)} edges closed under reverse complement")
+        _wall, log = run(f"lint-graph ({name})", ["lint-graph", "-G",
+                                                  os.path.join(tmp, name)])
+        check("lint-graph: ok" in log, f"{name} lints clean")
+
+    t0 = time.perf_counter()
+    olo, oc = read_set_spectrum(reads, rho, dev)
+    built = read_graph(base)
+    check(np.array_equal(built[0], olo) and np.array_equal(built[2], oc)
+          and not built[1].any(),
+          f"the graph of all {len(reads)} reads == the numpy/torch.unique "
+          f"oracle ({len(olo)} edges; oracle {time.perf_counter() - t0:.1f} s)")
+
+    def chain(tag: str, trim_opts: list[str]):
+        """trim-graph, prune-tips --iterate 4, pop-bubbles with their checks
+        -> (last graph's base, its edges, the three logs)."""
+        src, n_in, logs = base, len(olo), {}
+        for cmd, opts in (("trim-graph", trim_opts),
+                          ("prune-tips", ["--iterate", "4"]),
+                          ("pop-bubbles", [])):
+            name = f"asm{tag}_{cmd.split('-')[0]}"
+            out = os.path.join(tmp, name)
+            wall, logs[cmd] = run(cmd, [cmd, "-G", src, "-O", out, *opts])
+            walls[f"{cmd}{tag}"] = wall
+            print("".join(f"  {line}\n" for line in logs[cmd].splitlines()
+                          if f"\t{cmd}" in line), end="", flush=True)
+            g = read_graph(out)
+            if cmd == "trim-graph":
+                cutoff = (int(trim_opts[1]) if trim_opts else int(
+                    logs[cmd].split("inferred cutoff ")[1].split()[0]))
+                keep = oc >= cutoff
+                check(cutoff >= 2 and np.array_equal(g[0], olo[keep])
+                      and np.array_equal(g[2], oc[keep]),
+                      f"trimmed graph == the oracle's spectrum cut at "
+                      f"{'the logged cutoff' if not trim_opts else 'cutoff'} "
+                      f"{cutoff} ({int(keep.sum())} of {len(olo)} edges)")
+            else:
+                check(len(g[0]) <= n_in
+                      and np.isin(g[0], olo, assume_unique=True).all(),
+                      f"{cmd} only removed edges")
+            if not tag or cmd == "pop-bubbles":
+                graph_checks(name, g)
+            print(f"{cmd} {' '.join(opts)} on the host of {smi}: {n_in} edges "
+                  f"in, {len(g[0])} out, wall {wall:.3f} s", flush=True)
+            src, n_in = out, len(g[0])
+        return src, g[0], logs
+
+    walls = {}
+    in_genome = both_strands_keys(genome, rho)
+    # the pipeline's own settings: at the inferred cutoff no error survives
+    # the trim, so the later stages find little to do
+    src, _edges, _logs = chain("", [])
+    # the same stages after a trim at 2, which keeps every error seen twice:
+    # tips and bubbles for the later stages to remove
+    _src2, edges2, logs2 = chain("_c2", ["-C", "2"])
+    tips = sum(int(line.split("removed ")[1].split()[0])
+               for line in logs2["prune-tips"].splitlines() if "removed" in line)
+    popped = int(logs2["pop-bubbles"].split("pop-bubbles: ")[1].split()[0])
+    twice = olo[(oc >= 2) & np.isin(olo, in_genome, assume_unique=True)]
+    kept = np.isin(twice, edges2, assume_unique=True).mean()
+    extra = len(edges2) - int(np.isin(edges2, in_genome, assume_unique=True).sum())
+    check(tips > 0 and popped > 0 and kept >= 0.999,
+          f"after a trim at 2: {tips} tips pruned, {popped} bubbles popped, "
+          f"{100 * kept:.4f}% of the genome's {len(twice)} {rho}-mers seen "
+          f"twice are kept, {extra} edges of errors are left")
+
+    fa = os.path.join(tmp, "contigs.fa")
+    walls["print-contigs"], log = run(
+        "print-contigs", ["print-contigs", "-G", src, "-o", fa,
+                          "--min-length", "100"])
+    contigs = read_contigs(fa)
+    lengths = np.sort(np.array([len(c) for c in contigs], np.int64))[::-1]
+    check(len(contigs) > 0 and int(lengths.min()) >= 100
+          and all(bool((c < 4).all()) for c in contigs)
+          and f"print-contigs: {len(contigs)} contigs" in log,
+          f"{len(contigs)} contigs of at least 100 bases, as the log says")
+    total = int(lengths.sum())
+    n50 = int(lengths[np.searchsorted(np.cumsum(lengths), (total + 1) // 2)])
+    in_contigs = np.unique(np.concatenate(
+        [both_strands_keys(c, rho) for c in contigs]))
+    check(np.isin(in_contigs, in_genome, assume_unique=True).all(),
+          f"every {rho}-mer of every contig is a {rho}-mer of the genome or "
+          f"of its reverse complement ({len(in_contigs)} distinct)")
+    share = len(in_contigs) / len(in_genome)
+    check(share >= 0.95, f"the contigs hold {100 * share:.3f}% of the genome's "
+                         f"{len(in_genome)} distinct {rho}-mers (both strands)")
+    print(f"print-contigs on the host of {smi}: {len(contigs)} contigs, "
+          f"{total} bases in all, N50 {n50}, longest {int(lengths[0])}, wall "
+          f"{walls['print-contigs']:.3f} s", flush=True)
+
+    dump, back = os.path.join(tmp, "asm.dump"), os.path.join(tmp, "asm_back")
+    walls["dump-graph"], _ = run("dump-graph", ["dump-graph", "-G", src,
+                                                "-o", dump])
+    walls["restore-graph"], _ = run("restore-graph", ["restore-graph", "-f",
+                                                      dump, "-O", back])
+    suffixes = (".header", ".edges-lo", ".counts", "-counts-hist.txt")
+    same = []
+    for suffix in suffixes:
+        with open(src + suffix, "rb") as a, open(back + suffix, "rb") as b:
+            same.append(a.read() == b.read())
+    check(all(same) and not os.path.exists(back + ".edges-hi"),
+          f"dump-graph | restore-graph: the {len(suffixes)} files are "
+          f"byte-identical ({os.path.getsize(dump)} B of text)")
+    print(f"assembly -k {k} on the host of {smi} (no device work): walls (s) "
+          f"{ {name: round(w, 3) for name, w in walls.items()} }", flush=True)
+
+
+# ----------------------------------------------------------- taxonomy phase
+# root 1; genus A (2) holds species 4 and 5, the two references that share
+# the 20 kbp segment; genus B (3) holds species 6 and 7
+TAXONOMY = {1: (1, "root", "root"), 2: (1, "genus", "A"), 3: (1, "genus", "B"),
+            4: (2, "species", "A1"), 5: (2, "species", "A2"),
+            6: (3, "species", "B1"), 7: (3, "species", "B2")}
+SPECIES = (4, 5, 6, 7)
+
+
+def taxo_lca(nodes) -> int:
+    """Lowest common ancestor in TAXONOMY, by walking ancestor paths."""
+    paths = []
+    for n in nodes:
+        path = [n]
+        while TAXONOMY[path[-1]][0] != path[-1]:
+            path.append(TAXONOMY[path[-1]][0])
+        paths.append(path[::-1])
+    common = 0
+    for level in zip(*paths):
+        if len(set(level)) != 1:
+            break
+        common = level[0]
+    return common
+
+
+def taxo_report(per_read_node: list[int]) -> str:
+    """The report ``classify-reads`` prints: counts summed up the tree,
+    children before their parent, then the unclassified reads."""
+    own = {n: per_read_node.count(n) for n in (0, *TAXONOMY)}
+    kids = {n: [c for c, (p, _k, _n) in TAXONOMY.items() if p == n and c != n]
+            for n in TAXONOMY}
+    lines = []
+
+    def walk(n: int) -> int:
+        s = own[n] + sum(walk(c) for c in kids[n])
+        if s > 0:
+            lines.append(f"{s}\t{TAXONOMY[n][1]}\t{TAXONOMY[n][2]}")
+        return s
+
+    walk(1)
+    if own[0]:
+        lines.append(f"{own[0]}\tunclassified\tunclassified")
+    return "".join(line + "\n" for line in lines)
+
+
+def taxonomy_phase(dev, smi: str, tmp: str, inp: dict,
+                   n_head: int = 20000) -> tuple[int, int]:
+    """``build-kmer-set -k 25``, ``annotate-kmers`` and ``classify-reads`` over
+    the electus phase's four references (four species under two genera), its
+    numpy sets of them and its reads -> (merge_fold launches in
+    ``build-kmer-set``, merge_sorted launches in ``classify-reads``)."""
+    import torch
+
+    from gossamer_tpu_torch.classify import device as cd
+    from gossamer_tpu_torch.cli.goss import main as goss
+    from gossamer_tpu_torch.convert import set_from_u64
+    from gossamer_tpu_torch.graph.kmer_set import KmerSet
+    from gossamer_tpu_torch.io.artifacts import read_array
+    from gossamer_tpu_torch.io.factory import PhysicalFileFactory
+    from gossamer_tpu_torch.ops import fold, merge
+    from gossamer_tpu_torch.utils import profile
+
+    k = EK
+    refs, ref_fa, reads = inp["erefs"], inp["eref_fa"], inp["ereads"]
+    device = ["--device", str(dev)]
+    ks = os.path.join(tmp, "taxo_ks")
+    taxo, annots = os.path.join(tmp, "taxo.tsv"), os.path.join(tmp, "annots.tsv")
+    with open(taxo, "w") as f:
+        f.write("".join(f"{n}\t{p}\t{kind}\t{name}\n"
+                        for n, (p, kind, name) in TAXONOMY.items()))
+    with open(annots, "w") as f:
+        f.write("".join(f"{path}\t{node}\n" for path, node in zip(ref_fa, SPECIES)))
+
+    fold.merge_fold.launches = merge.merge_sorted.launches = 0
+    t0 = time.perf_counter()
+    rc = goss(["build-kmer-set", "-k", str(k), "-O", ks, *device,
+               *[x for p in ref_fa for x in ("-I", p)]])
+    build_wall = time.perf_counter() - t0
+    build_launches = fold.merge_fold.launches
+    check(rc == 0 and build_launches > 0,
+          f"build-kmer-set -k {k} exit code 0, merge_fold kernel launched "
+          f"{build_launches} times")
+    t0 = time.perf_counter()
+    rc = goss(["annotate-kmers", "-G", ks, "--annot-list", annots,
+               "--taxonomy", taxo, *device])
+    annot_wall = time.perf_counter() - t0
+    check(rc == 0, "annotate-kmers exit code 0")
+
+    # oracle: the union of the references' sets, each k-mer annotated with
+    # the LCA of the species that hold it
+    fac = PhysicalFileFactory()
+    kset = KmerSet.read(ks, fac)
+    annot = read_array(fac, ks + ".annotation")
+    sets = inp["eref_sets"]
+    ulo, uhi = unique128(np.concatenate([s[0] for s in sets]),
+                         np.concatenate([s[1] for s in sets]))
+    check(np.array_equal(kset.lo, ulo) and np.array_equal(kset.hi, uhi),
+          f"k-mer set of {kset.count} {k}-mers == the union of the "
+          f"references' numpy sets")
+    held = np.zeros(len(ulo), np.int64)
+    for i, s in enumerate(sets):
+        held[lookup128(ulo, uhi, *s)] |= 1 << i
+    want_annot = np.zeros(len(ulo), np.uint32)
+    for m in np.unique(held):
+        want_annot[held == m] = taxo_lca(
+            [SPECIES[i] for i in range(len(SPECIES)) if m >> i & 1])
+    shared = int((want_annot == 2).sum())
+    check(np.array_equal(annot, want_annot) and shared > 0,
+          f"annotation of every k-mer == the LCA oracle ({shared} k-mers on "
+          f"genus A, {int((want_annot == 1).sum())} on the root)")
+    with open(ks + ".taxo") as a, open(taxo) as b:
+        check(a.read() == b.read(), "the taxonomy was copied beside the set")
+
+    torch.cuda.reset_peak_memory_stats(dev)
+    profile.reset()
+    profile.enable()
+    fold.merge_fold.launches = merge.merge_sorted.launches = 0
+    stdout = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(stdout):
+        rc = goss(["classify-reads", "-G", ks, "-I", inp["er_fa"], *device])
+    wall = time.perf_counter() - t0
+    launches = merge.merge_sorted.launches
+    peak = torch.cuda.max_memory_allocated(dev)
+    profile.enable(False)
+    phases = profile.totals()
+    check(rc == 0, "classify-reads exit code 0")
+    print(stdout.getvalue(), end="", flush=True)
+    want_launches = -(-len(reads) // 4096)
+    check(launches == want_launches,
+          f"merge_sorted kernel launched {launches} times in classify-reads: "
+          f"once a batch of 4096 reads")
+    full = stdout.getvalue().splitlines()
+    check(int(full[-2].split("\t")[0]) + int(full[-1].split("\t")[0])
+          == len(reads) and full[-1].endswith("unclassified"),
+          f"root and unclassified lines sum to {len(reads)} reads")
+
+    # oracle on the first reads: windows looked up in the set, per-read LCA
+    head = reads[:n_head]
+    lo, hi, valid = window_keys(head, k)
+    row = np.broadcast_to(np.arange(len(head))[:, None], lo.shape)[valid]
+    r = lookup128(kset.lo, kset.hi, *normalized(lo[valid], hi[valid], k))
+    pairs = np.unique((row[r >= 0] << 32) | want_annot[r[r >= 0]])
+    nodes_of = [set() for _ in head]
+    for rid, node in zip((pairs >> 32).tolist(), (pairs & 0xFFFFFFFF).tolist()):
+        nodes_of[rid].add(node)
+    per_read = [taxo_lca(ns) if ns else 0 for ns in nodes_of]
+
+    def classify(name: str, rows: np.ndarray) -> str:
+        path = os.path.join(tmp, name)
+        write_fasta(path, rows)
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            rc = goss(["classify-reads", "-G", ks, "-I", path, *device])
+        check(rc == 0, f"classify-reads of {name} exit code 0")
+        return out.getvalue()
+
+    check(classify("taxo_head.fa", head) == taxo_report(per_read),
+          f"first {len(head)} reads ({int((head == 4).any(axis=1).sum())} with "
+          f"an N): the report == the per-read numpy oracle (own counts "
+          f"{ {n: per_read.count(n) for n in (0, *TAXONOMY)} })")
+    # reads drawn from the shared segment (the first species' copy): on the
+    # genus, but for the few whose every matched window spans a base where
+    # the second species' copy differs, which belong to the first species
+    seg_rows = np.nonzero(inp["ereads_src"][:n_head] == len(refs))[0]
+    seg_nodes = [per_read[i] for i in seg_rows]
+    on_genus = seg_nodes.count(2)
+    check(classify("taxo_seg.fa", head[seg_rows]) == taxo_report(seg_nodes)
+          and on_genus >= 0.98 * len(seg_rows) > 0
+          and set(seg_nodes) <= {2, 4},
+          f"of {len(seg_rows)} reads drawn from the shared segment {on_genus} "
+          f"land on genus A, the LCA of the two species that share it, "
+          f"{seg_nodes.count(4)} on the species they were drawn from, none "
+          f"elsewhere; the CLI's report of them == the oracle")
+
+    # one full batch: the join on the card == the same call on CPU tensors
+    codes = [np.where(c < 4, c, 255).astype(np.uint8) for c in reads[:4096]]
+    window = cd._default_window(codes, 1 << 22)
+    flat, _starts = cd._flat_batch(codes, k, window)
+    set_keys = set_from_u64(kset.lo, dev)
+    before = merge.merge_sorted.launches
+    on_card = cd.join_ranks_batch(torch.from_numpy(flat).to(dev), set_keys, k)
+    on_cpu = cd.join_ranks_batch(torch.from_numpy(flat), set_keys.cpu(), k)
+    check(merge.merge_sorted.launches == before + 1
+          and torch.equal(on_card.cpu(), on_cpu) and int((on_cpu >= 0).sum()) > 0,
+          f"join_ranks_batch on the card == on CPU tensors for one batch "
+          f"(window {window}, {int((on_cpu >= 0).sum())} matched windows, set "
+          f"{kset.count} lanes)")
+
+    scope = {name: phases.get(f"classify/{name}", 0.0)
+             for name in ("encode", "pack", "launch", "wait", "lca")}
+    other = wall - sum(scope.values())
+    print(f"taxonomy -k {k} on {smi}: build-kmer-set {kset.count} k-mers, wall "
+          f"{build_wall:.3f} s ({build_launches} merge_fold launches); "
+          f"annotate-kmers wall {annot_wall:.3f} s (host); classify-reads "
+          f"{len(reads)} reads, wall {wall:.3f} s -> {len(reads) / wall:.0f} "
+          f"reads/s (host-bound); phases (s, host clock): encode "
+          f"{scope['encode']:.3f}, pack {scope['pack']:.3f}, launch "
+          f"{scope['launch']:.3f}, wait for the device {scope['wait']:.3f}, "
+          f"per-read LCA {scope['lca']:.3f}, other (parse, report) "
+          f"{other:.3f}; {launches} merge_sorted launches; peak device memory "
+          f"{peak / 2**30:.2f} GiB", flush=True)
+    return build_launches, launches
+
+
 def main() -> int:
     import torch
 
@@ -1167,11 +1595,11 @@ def main() -> int:
         return out
 
     fold_stats = phase("merge_fold kernel", fold_phase, dev, smi)
-    merge_stats, merge_wide = phase("merge_sorted kernel", merge_phase, dev, smi)
+    merge_stats, merge_more = phase("merge_sorted kernel", merge_phase, dev, smi)
     fold_paths, merge_paths = {}, {}
     with tempfile.TemporaryDirectory() as tmp:
         t0 = time.perf_counter()
-        reads = make_reads(np.random.default_rng(2026))
+        genome, reads = make_reads(np.random.default_rng(2026))
         fasta = os.path.join(tmp, "reads.fa")
         write_fasta(fasta, reads)
         print(f"read set: {len(reads)} reads x {reads.shape[1]} bp, "
@@ -1183,6 +1611,8 @@ def main() -> int:
             "build-graph -k 55 (wide)", graph_phase, dev, smi, tmp, reads,
             fasta, WIDE_RHO)
         phase("one wide flush", wide_flush_ms, dev, smi, WIDE_RHO)
+        phase("assembly -k 25", assembly_phase, dev, smi, tmp, genome, reads,
+              RHO)
         del reads
         inp = xenome_inputs(tmp)
         fold_paths["xenome index"], merge_paths["xenome classify"] = phase(
@@ -1194,10 +1624,14 @@ def main() -> int:
             "xenome -K 40 (wide)", xenome_phase, dev, smi, tmp, inp, WIDE_XK)
         fold_paths["electus index"], merge_paths["electus classify"] = phase(
             "electus", electus_phase, dev, smi, tmp, inp)
+        (fold_paths["build-kmer-set (taxonomy)"],
+         merge_paths["classify-reads"]) = phase(
+            "taxonomy -k 25", taxonomy_phase, dev, smi, tmp, inp)
 
     for name, st, paths in (("merge_fold", fold_stats, fold_paths),
                             ("merge_sorted", merge_stats, merge_paths),
-                            ("merge_sorted", merge_wide, {})):
+                            *(("merge_sorted", st, st.pop("paths"))
+                              for st in merge_more)):
         print(f"{name} on {smi}, {st['shape']}: bound model "
               f"{st['bytes']} B (inputs once + outputs once) -> bound "
               f"{st['bound_ms']:.4f} ms by {st['bound_by']} at "
@@ -1205,7 +1639,7 @@ def main() -> int:
               f"= {st['bytes'] / st['ms'] / 1e6:.0f} GB/s, "
               f"{100 * st['bound_ms'] / st['ms']:.1f}% of the bound; plain "
               f"{st['plain_ms']:.3f} ms; no single PyTorch call computes it; "
-              f"launches per path {paths if paths else 'none (not on a path)'}",
+              f"launches per path {paths}",
               flush=True)
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all", flush=True)
     print(json.dumps({"kernels": [

@@ -28,6 +28,10 @@ canonicalized by value against a set re-represented once by
 :func:`recanon_set_value`.  It joins and aggregates like the other narrow
 engines.
 
+:func:`join_ranks_batch` is the same join for sets whose payload is an
+annotation per key held on the host: it returns each window's rank in the
+set (the taxonomy commands).
+
 Wide keys (30 < k <= 62) hold E in the two-lane layout of
 :mod:`..ops.engine_wide` (``hi``, ``lo`` with its top bit flipped).  There
 is no two-lane merge kernel: :func:`classify_batch_wide` concatenates set
@@ -232,6 +236,68 @@ def classify_codes_device(codes_list, set_E: torch.Tensor, k: int,
                                               set_E, k, max_reads))
         out_counts.append(n_reads)
     return _gather(out_dev, out_counts)
+
+
+# ------------------------------------------------------------ the rank join
+def join_ranks_batch(codes: torch.Tensor, set_keys: torch.Tensor, k: int,
+                     set_pay: torch.Tensor | None = None) -> torch.Tensor:
+    """codes uint8[W + k - 1] (255-separated) -> int64[W]: for each window
+    the rank of its normalized k-mer in the sorted plane ``set_keys`` (int64,
+    distinct), or -1.  The sort-join for sets whose per-key payload stays on
+    the host as ``annot[rank]`` (``annotate-kmers`` / ``classify-reads``):
+    the sorted queries are merged into the set by
+    :func:`..ops.merge.merge_sorted` (set lanes first on equal keys), a
+    ``cumsum`` of the set lanes gives each query lane the rank of the latest
+    set lane before it, and the ranks are scattered back to window order.
+    ``set_pay``: a tensor of -1 as long as the set, to reuse across batches."""
+    W = codes.shape[0] - k + 1
+    keys, valid = dk.kmerize_flat(codes, k)
+    out = torch.full((W + 1,), -1, dtype=torch.int64, device=codes.device)
+    if set_keys.numel() == 0:
+        return out[:W]
+    if set_pay is None:
+        set_pay = torch.full_like(set_keys, -1)
+    q_sorted, perm = torch.sort(torch.where(valid, dk.normalize(keys, k), SENT))
+    merged, pay = merge_sorted(set_keys, set_pay, q_sorted, perm)
+    is_set = pay < 0
+    r = torch.cumsum(is_set, 0) - 1
+    match = (~is_set & (r >= 0) & (set_keys[r.clamp(min=0)] == merged)
+             & (merged != SENT))
+    # set lanes land in the spare slot W
+    out.scatter_(0, torch.where(is_set, W, pay), torch.where(match, r, -1))
+    return out[:W]
+
+
+def join_ranks_device(codes_list, set_keys: torch.Tensor, k: int,
+                      window: int | None = None):
+    """Batching on the host: list of read code arrays -> (rid int64[M], rank
+    int64[M]) over all MATCHED windows, read ids in input order.
+    ``set_keys`` is the set's sorted int64 key plane on the device to run
+    on (``convert.set_from_u64`` of ``KmerSet.lo``).  The window is the
+    whole input rounded up to a power of two, between 2^12 and 2^22 lanes;
+    a read longer than the window raises "batch exceeds window"."""
+    device = set_keys.device
+    if window is None:
+        window = _default_window(codes_list, 1 << 22)
+    set_pay = torch.full_like(set_keys, -1)
+    out_dev = []
+    rids = []
+    rid_base = 0
+    for buf in _batches(codes_list, window, max_reads=window + 1):
+        with profile.context("classify/pack"):
+            flat, starts = _flat_batch(buf, k, window)
+            rids.append(rid_base + np.searchsorted(
+                starts, np.arange(window, dtype=np.int64), side="right") - 1)
+            rid_base += len(buf)
+        with profile.context("classify/launch"):
+            out_dev.append(join_ranks_batch(torch.from_numpy(flat).to(device),
+                                            set_keys, k, set_pay))
+    if not out_dev:
+        return np.zeros(0, np.int64), np.zeros(0, np.int64)
+    with profile.context("classify/wait"):
+        ranks = torch.cat(out_dev).cpu().numpy()
+    m = ranks >= 0
+    return np.concatenate(rids)[m], ranks[m]
 
 
 # ------------------------------------------- the two-sort periodic engine

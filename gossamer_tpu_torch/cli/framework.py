@@ -172,3 +172,10 @@ def gather_read_files(ctx: Context) -> list[tuple[str, str]]:
     if not out:
         raise CommandError("no input files given (use -I/-i/-F/-f/--line-in)")
     return out
+
+
+def iter_reads(ctx: Context, files=None):
+    from ..io.readers import read_file
+
+    for name, fmt in files if files is not None else gather_read_files(ctx):
+        yield from read_file(name, ctx.fac, fmt)

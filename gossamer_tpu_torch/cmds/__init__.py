@@ -1,8 +1,16 @@
-"""Command registry (``gossamer_tpu/cmds/__init__.py``): build-graph,
-build-kmer-set and dump-kmer-set."""
+"""Command registry (``gossamer_tpu/cmds/__init__.py``, reference
+``src/GossCmdReg.cc``): every module's ``COMMANDS`` list, in this order.
+A module that fails to import fails the registry."""
+
+from __future__ import annotations
+
+import importlib
+
+MODULES = ("basic", "contigs_cmd", "cleanup", "taxo")
 
 
 def all_goss_commands():
-    from .basic import COMMANDS
-
-    return list(COMMANDS)
+    cmds = []
+    for name in MODULES:
+        cmds += importlib.import_module(f"{__name__}.{name}").COMMANDS
+    return cmds

@@ -1,4 +1,4 @@
-"""goss build-graph, build-kmer-set and dump-kmer-set
+"""goss commands: build/dump/restore/lint for graphs and k-mer sets
 (``gossamer_tpu/cmds/basic.py``, ``src/GossApp.cc:101-143``).
 
 Option names and flags follow the reference registration; the JAX
@@ -93,10 +93,19 @@ def _build_kmer_set_run(ctx: Context) -> None:
     ctx.log("info", f"build-kmer-set: {ks.count} kmers in {t.check():.2f}s")
 
 
-# --------------------------------------------------------------- dump-kmer-set
+# ----------------------------------------------------------------- dump/restore
 def _graph_in_out_opts(p):
     p.add_argument("-G", "--graph-in", required=True)
     p.add_argument("-o", "--output-file", default="-")
+
+
+def _dump_graph_run(ctx: Context) -> None:
+    from ..graph.graph import Graph
+    from ..graph.text import dump_graph
+
+    g = Graph.read(ctx.opts.graph_in, ctx.fac)
+    with ctx.fac.open_write_text(ctx.opts.output_file) as out:
+        dump_graph(g, out)
 
 
 def _dump_kmer_set_run(ctx: Context) -> None:
@@ -107,10 +116,70 @@ def _dump_kmer_set_run(ctx: Context) -> None:
         ks.dump_text(out)
 
 
+def _restore_graph_opts(p):
+    p.add_argument("-f", "--input-file", required=True)
+    p.add_argument("-O", "--graph-out", required=True)
+
+
+def _restore_graph_run(ctx: Context) -> None:
+    from ..graph.text import restore_graph
+
+    with ctx.fac.open_read_text(ctx.opts.input_file) as inp:
+        g = restore_graph(inp)
+    g.write(ctx.opts.graph_out, ctx.fac)
+
+
+# -------------------------------------------------------------------- lint
+def _lint_graph_opts(p):
+    p.add_argument("-G", "--graph-in", required=True)
+
+
+def _lint_graph_run(ctx: Context) -> None:
+    from ..graph.graph import Graph
+
+    g = Graph.read(ctx.opts.graph_in, ctx.fac)
+    errs = g.lint()
+    for e in errs:
+        ctx.log("error", f"lint-graph: {e}")
+    if errs:
+        raise CommandError(f"lint-graph: {len(errs)} invariant(s) violated")
+    ctx.log("info", "lint-graph: ok")
+
+
+# ------------------------------------------------------------- graph-to-kmer-set
+def _graph_to_kmer_set_opts(p):
+    p.add_argument("-G", "--graph-in", required=True)
+    p.add_argument("-O", "--graph-out", required=True)
+
+
+def _graph_to_kmer_set_run(ctx: Context) -> None:
+    """Project a graph's edge set to the canonical k-mer set of its
+    (k+1)-mers (``src/GossCmdGraphToKmerSet.cc``)."""
+    from ..core import kmer as KK
+    from ..graph.graph import Graph
+    from ..graph.kmer_set import KmerSet
+
+    g = Graph.read(ctx.opts.graph_in, ctx.fac)
+    lo, hi, _ = KK.normalize(g.lo, g.hi, g.rho)
+    order = np.lexsort((lo, hi))
+    lo, hi = lo[order], hi[order]
+    if len(lo):
+        keep = np.ones(len(lo), dtype=bool)
+        keep[1:] = (lo[1:] != lo[:-1]) | (hi[1:] != hi[:-1])
+        lo, hi = lo[keep], hi[keep]
+    KmerSet(g.rho, lo, hi).write(ctx.opts.graph_out, ctx.fac)
+
+
 COMMANDS = [
     Command("build-graph", "create a new graph", _build_graph_opts, _build_graph_run),
     Command("build-kmer-set", "create a set of canonical k-mers",
             _build_graph_opts, _build_kmer_set_run),
+    Command("dump-graph", "dump a graph as text", _graph_in_out_opts, _dump_graph_run),
     Command("dump-kmer-set", "dump a k-mer set as text",
             _graph_in_out_opts, _dump_kmer_set_run),
+    Command("restore-graph", "restore a graph from text",
+            _restore_graph_opts, _restore_graph_run),
+    Command("lint-graph", "check graph invariants", _lint_graph_opts, _lint_graph_run),
+    Command("graph-to-kmer-set", "project a graph to a k-mer set",
+            _graph_to_kmer_set_opts, _graph_to_kmer_set_run),
 ]

@@ -1,10 +1,15 @@
 """The de Bruijn graph: sorted edge array + counts.
 
-The part of ``gossamer_tpu/graph/graph.py`` that build-graph uses:
-construction, ``write`` (the same bytes as the JAX package), ``read`` of
-this package's own format, ``hist``, ``stat`` and ``lint``.  Edges are
-held as sorted ``uint64`` (lo, hi) planes, the replacement for the
-reference's succinct ``Graph`` (``src/Graph.hh:62-651``).
+Host copy of ``gossamer_tpu/graph/graph.py``: ``write`` gives the same
+bytes as the JAX package, ``read`` takes this package's own format (the
+reference's binary format is not read by the port).  Edges are held as
+sorted ``uint64`` (lo, hi) planes, the replacement for the reference's
+succinct ``Graph`` (``src/Graph.hh:62-651``); ``rank`` is a vectorized
+binary search and ``select`` a gather, so node degrees are two-sided ranks
+exactly as in the reference (``beginEndRank``), over whole batches of
+nodes.  On narrow graphs the fused degree and successor queries run in
+the native library; the numpy forms answer wide graphs, and narrow ones
+when the library is unavailable.
 
 Graph invariants preserved (``src/GossCmdLintGraph.cc``):
  * edges sorted strictly ascending;
@@ -94,21 +99,140 @@ class Graph:
         return cls(h["K"], lo, hi, read_array(fac, basename + ".counts"),
                    bool(h.get("asymmetric", 0)))
 
-    # -- queries ---------------------------------------------------------
+    # -- basic ops -------------------------------------------------------
     def rank(self, qlo, qhi) -> np.ndarray:
         return rank128(self.lo, self.hi, qlo, qhi)
 
+    def select(self, r):
+        return self.lo[r], self.hi[r]
+
+    def access_and_rank(self, qlo, qhi):
+        r = self.rank(qlo, qhi)
+        if self.count == 0:
+            return np.zeros(np.shape(r), dtype=bool), r
+        inside = r < self.count
+        ridx = np.minimum(r, self.count - 1)
+        hit = inside & (self.lo[ridx] == qlo) & (self.hi[ridx] == qhi)
+        return hit, r
+
+    def multiplicity(self, r):
+        return self.counts[r]
+
+    # -- node helpers (vectorized) --------------------------------------
+    def from_node(self, elo, ehi):
+        return u128.shr(elo, ehi, 2)
+
+    def to_node(self, elo, ehi):
+        k = self.k
+        elo = np.asarray(elo, dtype=U64)
+        ehi = np.asarray(ehi, dtype=U64)
+        if 2 * k >= 64:
+            return elo.copy(), ehi & U64((1 << (2 * k - 64)) - 1)
+        return elo & U64((1 << (2 * k)) - 1), np.zeros_like(ehi)
+
+    def node_rc(self, nlo, nhi):
+        return K.reverse_complement(np.asarray(nlo, U64), np.asarray(nhi, U64), self.k)
+
+    def edge_rc(self, elo, ehi):
+        return K.reverse_complement(np.asarray(elo, U64), np.asarray(ehi, U64), self.rho)
+
+    def begin_end_rank(self, nlo, nhi):
+        """Out-edge rank range of nodes: [rank(n<<2), rank(n<<2 + 4))."""
+        if 2 * self.rho <= 64:
+            # narrow: node << 2 fits u64; skip the u128 shift/add planes
+            nlo = np.asarray(nlo, U64)
+            blo = nlo << U64(2)
+            z = np.zeros_like(np.asarray(nhi, U64))
+            end = blo + U64(4)
+            r1 = self.rank(end, z)
+            if self.rho * 2 == 64:  # end may wrap for the all-T node
+                r1 = np.where(end < blo, np.int64(self.count), r1)
+            return self.rank(blo, z), r1
+        blo, bhi = u128.shl(nlo, nhi, 2)
+        elo_, ehi_ = u128.add_small(blo, bhi, 4)
+        return self.rank(blo, bhi), self.rank(elo_, ehi_)
+
+    def out_degree(self, nlo, nhi):
+        r0, r1 = self.begin_end_rank(nlo, nhi)
+        return r1 - r0
+
+    def in_degree(self, nlo, nhi):
+        """inDegree(n) = outDegree(revcomp(n)) (``GraphEssentials.hh:74-77``)."""
+        rlo, rhi = self.node_rc(nlo, nhi)
+        return self.out_degree(rlo, rhi)
+
+    def _native_ok(self) -> bool:
+        """The native queries take sorted narrow edges (hi == 0 everywhere)."""
+        return 2 * self.rho <= 64 and self.count > 0 and not self.hi.any()
+
+    def node_degrees(self, nlo, nhi):
+        """Fused (out_degree, in_degree) of a node batch: one native pass
+        (4 prefetching rank streams) on narrow graphs; the numpy
+        formulation pays ~7 full-array passes on top of the searches."""
+        nlo = np.asarray(nlo, U64)
+        nhi = np.asarray(nhi, U64)
+        if self._native_ok() and nlo.ndim == 1 and len(nlo) >= (1 << 14):
+            from ..io.native import native_node_degrees, native_or_none
+
+            out = native_or_none("node degrees", native_node_degrees, self.lo,
+                                 self.rho, nlo)
+            if out is not None:
+                return out
+        return self.out_degree(nlo, nhi), self.in_degree(nlo, nhi)
+
+    def canonical_node(self, nlo, nhi):
+        clo, chi, flip = K.normalize(np.asarray(nlo, U64), np.asarray(nhi, U64), self.k)
+        return ~flip
+
+    # -- structure tables ------------------------------------------------
     def edge_rc_rank(self) -> np.ndarray:
         """Rank of each edge's reverse complement (symmetric graphs)."""
-        rlo, rhi = K.reverse_complement(np.asarray(self.lo, U64),
-                                        np.asarray(self.hi, U64), self.rho)
+        rlo, rhi = self.edge_rc(self.lo, self.hi)
         return self.rank(rlo, rhi)
+
+    def successor_table(self):
+        """For each edge rank i: rank of the unique following edge inside a
+        linear segment, or -1 when to(i) is not a 1-in/1-out node.
+
+        This is the vectorized core that replaces the reference's
+        sequential ``linearPath`` walks (``src/Graph.tcc:21-46``).
+        """
+        if self._native_ok():
+            from ..io.native import native_or_none, native_successor_table
+
+            nxt = native_or_none("successor table", native_successor_table,
+                                 self.lo, self.rho)
+            if nxt is not None:
+                return nxt
+        tlo, thi = self.to_node(self.lo, self.hi)
+        outd = self.out_degree(tlo, thi)
+        ind = self.in_degree(tlo, thi)
+        through = (outd == 1) & (ind == 1)
+        blo, bhi = u128.shl(tlo, thi, 2)
+        nxt = self.rank(blo, bhi)  # rank of first out-edge of to(i)
+        return np.where(through, nxt, -1)
 
     def hist(self):
         """(multiplicities, frequencies) ascending (``Graph::hist``)."""
         if self.count == 0:
             return np.zeros(0, dtype=np.int64), np.zeros(0, dtype=np.int64)
         return np.unique(self.counts, return_counts=True)
+
+    # -- editing ---------------------------------------------------------
+    def remove_edges(self, dead: np.ndarray) -> "Graph":
+        """New graph without the flagged edge ranks (``Graph::remove``).
+
+        The reference rewrites the succinct structure through a deletion
+        bitmap (``src/GraphTrimmer.cc``); with array storage this is a
+        masked compaction.
+        """
+        keep = ~dead
+        return Graph(self.k, self.lo[keep], self.hi[keep], self.counts[keep],
+                     self.asymmetric)
+
+    # -- sequence --------------------------------------------------------
+    def edge_strings(self, ranks) -> np.ndarray:
+        return K.kmers_to_strings(self.rho, self.lo[ranks], self.hi[ranks])
 
     def stat(self) -> dict:
         """Size/storage property tree (reference ``Graph::stat``,

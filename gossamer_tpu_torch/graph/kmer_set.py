@@ -101,8 +101,16 @@ def rank128(set_lo: np.ndarray, set_hi: np.ndarray, qlo, qhi) -> np.ndarray:
     if n == 0:
         return np.zeros(len(qlo), dtype=np.int64)
     if set_hi[-1] == 0:
-        # all keys fit in 64 bits (k <= 31)
-        r = np.searchsorted(set_lo, qlo, side="left")
+        # all keys fit in 64 bits (k <= 31).  Large query batches go
+        # through the native blocked search (np.searchsorted misses the
+        # cache on every probe of a set of millions of keys)
+        r = None
+        if len(qlo) >= (1 << 15):
+            from ..io.native import native_or_none, native_rank_u64
+
+            r = native_or_none("rank", native_rank_u64, set_lo, qlo)
+        if r is None:
+            r = np.searchsorted(set_lo, qlo, side="left")
         return np.where(qhi > 0, np.int64(n), r)
     # vectorized 128-bit binary search (log2 n rounds over all queries)
     lo_idx = np.zeros(len(qlo), dtype=np.int64)

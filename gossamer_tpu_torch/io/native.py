@@ -3,7 +3,9 @@
 Counterpart of ``gossamer_tpu/io/native.py``, narrowed to what the
 counting engines run: the packed chunk reader (narrow keys), the raw code
 chunk reader (wide keys), the symmetric expansion and the 64-bit and
-128-bit spill codecs.  The library is compiled at first use
+128-bit spill codecs; and to what the graph queries run on narrow graphs:
+the blocked rank search, the chain walks, the fused node degrees and the
+fused successor table.  The library is compiled at first use
 from the checkout's ``native/gossio.cpp`` with the flags of
 ``native/Makefile`` into ``gossamer_tpu_torch/_build/``, so it is always
 built for the machine that loads it.  A checked-in ``native/libgossio.so``
@@ -14,6 +16,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import logging
 import os
 import shutil
 import subprocess
@@ -31,6 +34,8 @@ CXX_FLAGS = ["-O3", "-march=native", "-std=c++17", "-fPIC", "-Wall"]
 LD_FLAGS = ["-shared", "-lz", "-lpthread"]
 
 FMT_CODE = {None: 0, "fasta": 1, "fastq": 2, "line": 3}
+
+_log = logging.getLogger(__name__)
 
 
 class NativeUnavailable(RuntimeError):
@@ -94,6 +99,21 @@ def _load() -> ctypes.CDLL | NativeUnavailable:
     lib.gossio_expand_symmetric.restype = ctypes.c_long
     lib.gossio_expand_symmetric.argtypes = [ctypes.c_long, u64p, i64p,
                                             ctypes.c_int, u64p, i64p]
+    lib.gossio_rank_u64.restype = None
+    lib.gossio_rank_u64.argtypes = [u64p, ctypes.c_long, u64p, ctypes.c_long,
+                                    i64p, ctypes.c_int]
+    lib.gossio_merge_rank_u64.restype = None
+    lib.gossio_merge_rank_u64.argtypes = [u64p, ctypes.c_long, u64p,
+                                          ctypes.c_long, i64p]
+    lib.gossio_chains.restype = ctypes.c_long
+    lib.gossio_chains.argtypes = [i64p, ctypes.c_long, i64p, i64p, i64p]
+    lib.gossio_node_degrees_u64.restype = None
+    lib.gossio_node_degrees_u64.argtypes = [u64p, ctypes.c_long, ctypes.c_int,
+                                            u64p, ctypes.c_long, i64p, i64p,
+                                            ctypes.c_int]
+    lib.gossio_successor_table_u64.restype = None
+    lib.gossio_successor_table_u64.argtypes = [u64p, ctypes.c_long,
+                                               ctypes.c_int, i64p, ctypes.c_int]
     return lib
 
 
@@ -107,6 +127,27 @@ def load_library() -> ctypes.CDLL:
 
 def _ptr(a: np.ndarray, ctype):
     return a.ctypes.data_as(ctypes.POINTER(ctype))
+
+
+@functools.cache
+def _log_form(what: str, form: str) -> None:
+    """One log line per (query, form): which implementation answers it."""
+    _log.log(logging.WARNING if form != "native" else logging.INFO,
+             "%s: %s", what, form)
+
+
+def native_or_none(what: str, fn, *args):
+    """``fn(*args)`` from the native library, or None when the library is
+    unavailable, so that the caller runs its numpy form.  Only
+    :class:`NativeUnavailable` is caught; which form answers ``what`` is
+    logged once."""
+    try:
+        out = fn(*args)
+    except NativeUnavailable as e:
+        _log_form(what, f"numpy (native library unavailable: {e})")
+        return None
+    _log_form(what, "native")
+    return out
 
 
 def encode_spill_run(lo: np.ndarray, c: np.ndarray) -> np.ndarray:
@@ -255,3 +296,70 @@ def _flat_chunks(lib, paths, k, chunk, fmt, threads):
             yield buf
     finally:
         lib.gossio_close(handle)
+
+
+# ------------------------------------------------------- narrow graph queries
+def native_rank_u64(a: np.ndarray, q: np.ndarray, threads: int = 2) -> np.ndarray:
+    """lower_bound ranks of ``q`` in sorted ``a`` (both u64).  Sorted query
+    streams take the O(n+m) linear-merge path automatically."""
+    lib = load_library()
+    a = np.ascontiguousarray(a, dtype=np.uint64)
+    q = np.ascontiguousarray(q, dtype=np.uint64)
+    out = np.empty(len(q), dtype=np.int64)
+    pa, pq = _ptr(a, ctypes.c_uint64), _ptr(q, ctypes.c_uint64)
+    po = _ptr(out, ctypes.c_int64)
+    # linear merge pays off when q is sorted and a is not much larger
+    # (merge scans all of a; binary search costs m*log n probes)
+    if (len(q) > 2 and len(a) <= 8 * len(q)
+            and bool((q[1:] >= q[:-1]).all())):
+        lib.gossio_merge_rank_u64(pa, len(a), pq, len(q), po)
+    else:
+        lib.gossio_rank_u64(pa, len(a), pq, len(q), po, threads)
+    return out
+
+
+def native_chains(nxt: np.ndarray):
+    """Chain decomposition of a successor table: (start, pos, order,
+    n_live) with cycle edges start = -1."""
+    lib = load_library()
+    nxt = np.ascontiguousarray(nxt, dtype=np.int64)
+    n = len(nxt)
+    start = np.empty(n, dtype=np.int64)
+    pos = np.zeros(n, dtype=np.int64)
+    order = np.empty(n, dtype=np.int64)
+    n_live = lib.gossio_chains(_ptr(nxt, ctypes.c_int64), n,
+                               _ptr(start, ctypes.c_int64),
+                               _ptr(pos, ctypes.c_int64),
+                               _ptr(order, ctypes.c_int64))
+    return start, pos, order[:n_live], n_live
+
+
+def native_node_degrees(lo: np.ndarray, rho: int, nodes: np.ndarray,
+                        threads: int = 2):
+    """(out_degree, in_degree) of node keys against the sorted narrow
+    edge array (2*rho <= 64)."""
+    if 2 * rho > 64:
+        raise ValueError(f"native node degrees need 2*rho <= 64 (rho={rho})")
+    lib = load_library()
+    lo = np.ascontiguousarray(lo, dtype=np.uint64)
+    nodes = np.ascontiguousarray(nodes, dtype=np.uint64)
+    out_d = np.empty(len(nodes), dtype=np.int64)
+    in_d = np.empty(len(nodes), dtype=np.int64)
+    lib.gossio_node_degrees_u64(_ptr(lo, ctypes.c_uint64), len(lo), rho,
+                                _ptr(nodes, ctypes.c_uint64), len(nodes),
+                                _ptr(out_d, ctypes.c_int64),
+                                _ptr(in_d, ctypes.c_int64), threads)
+    return out_d, in_d
+
+
+def native_successor_table(lo: np.ndarray, rho: int,
+                           threads: int = 2) -> np.ndarray:
+    """Fused successor table over sorted narrow edges (2*rho <= 64)."""
+    if 2 * rho > 64:
+        raise ValueError(f"native successor table needs 2*rho <= 64 (rho={rho})")
+    lib = load_library()
+    lo = np.ascontiguousarray(lo, dtype=np.uint64)
+    nxt = np.empty(len(lo), dtype=np.int64)
+    lib.gossio_successor_table_u64(_ptr(lo, ctypes.c_uint64), len(lo), rho,
+                                   _ptr(nxt, ctypes.c_int64), threads)
+    return nxt
