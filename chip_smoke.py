@@ -1,11 +1,18 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port on one CUDA card: ``goss build-graph`` (narrow
-and wide keys), the assembler from that graph to contigs, ``xenome index`` +
-``classify`` (narrow and wide), the two-sort periodic classify engine,
-``electus index`` + ``classify``, the taxonomy commands, and both hand-written
-kernels.
+and wide keys), the assembler from that graph to contigs and to a supergraph,
+the ``gossple`` pipeline end to end, ``xenome index`` + ``classify`` (narrow
+and wide), the two-sort periodic classify engine, ``electus index`` +
+``classify``, the taxonomy commands, and both hand-written kernels.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --wide-memory   # what sizes -B for wide keys
+
+``--wide-memory`` runs only this: the peak device memory of one wide
+k-merize and one wide flush at 1, 2, 4 and 8 chunks into resident spectra
+of 2^22, 2^24 and 44,739,242 lanes, then ``build-graph -k 55`` of the
+read set sized by ``-B 2`` now and with the cap it had before, in turns
+(spills, wall, peak device memory).
 
 1. Prints the card's name and power limit (nvidia-smi) and the versions.
 2. Builds the port's native code from this checkout, all compilers started
@@ -17,7 +24,9 @@ kernels.
    lanes, four seeds, twice each; the merge: the same spectrum and a
    sorted batch of 8 x 2^22 lanes, the classify join's shape and the rank
    join's), both
-   timed with CUDA events.  The fold's edge cases sit on its tile
+   timed with CUDA events; the merge also against the library's way to the
+   same result (a stable ``torch.sort`` of the concatenation and a gather,
+   checked equal, timed).  The fold's edge cases sit on its tile
    boundaries (groups over several tiles, tiles without a group end,
    lengths one off a tile multiple, runs that start 8 bytes into a
    16-byte piece); input out of order in one run only must give
@@ -30,7 +39,8 @@ kernels.
    on the first 20k reads, equal a numpy oracle.
 5. Wide build-graph: the same read set, ``build-graph -k 55`` (112-bit
    keys, the wide engine: PyTorch ops, no kernel launch).  The same checks
-   with 128-bit keys as two uint64; then the device time of one wide flush.
+   with 128-bit keys as two uint64; its peak device memory must stay within
+   the 2 GiB of ``-B 2``; then the device time of one wide flush.
 6. assembly: the ``-k 25`` graph goes through the port's CLI, ``trim-graph``
    (cutoff inferred by the coverage model), ``prune-tips --iterate 4``,
    ``pop-bubbles``, ``print-contigs --min-length 100``: host code, as in the
@@ -39,7 +49,20 @@ kernels.
    logged cutoff; after each stage the graph is closed under reverse
    complement and lints clean; every 26-mer of every contig is one of the
    genome's (either strand) and the contigs hold at least 95% of them;
-   ``dump-graph | restore-graph`` gives byte-identical files.
+   ``dump-graph | restore-graph`` gives byte-identical files;
+   ``build-entry-edge-set``, ``build-supergraph`` and ``print-contigs``
+   again: before any threading the supergraph's contigs hold the linear
+   contigs' sequences (the headers name a superpath, not a segment).
+6b. gossple: a seeded 1.5 Mbp genome with 25 repeats of 60 bp and 10 of
+   250 bp in 4 copies each and 10 stretches of 150 bp that no read covers;
+   pairs of 100 bp reads (insert 400 +- 40, 30x, 0.5% substitutions, one
+   pair in 1000 with an N) through ``gossple -k 25 -C 5 --device cuda``,
+   all 11 stages; the built graph == a numpy/``torch.unique`` count; every
+   N-free piece of every contig, cut at the scaffold's gaps estimated at 0
+   or less, is in the genome or its reverse complement; no more contigs
+   and no lower N50 than the cleaned graph's linear contigs; lint-graph
+   passes; the merge-fold kernel launched; each stage's wall and peak
+   device memory; thread-reads' two ways to read ends, timed.
 7. xenome at bacterial scale: two seeded 4.6 Mbp references sharing a
    20 kbp segment (0.5% substitutions in the host's copy), 1M reads of
    100 bp (45% graft, 45% host, 5% the segment, 5% random; 0.5%
@@ -82,6 +105,7 @@ import contextlib
 import io
 import json
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -436,16 +460,29 @@ def merge_phase(dev, smi: str) -> dict:
         def run_plain():
             merge.merge_sorted_reference(a, av, b, bv)
 
+        def run_library():
+            """The library's way to the same function: a stable sort of the
+            concatenated keys and a gather of the payloads.  A stable sort
+            keeps A's lanes before B's on equal keys, as the kernel does."""
+            keys, order = torch.sort(torch.cat([a, b]), stable=True)
+            return keys, torch.cat([av, bv])[order]
+
+        got, lib = merge.merge_sorted(a, av, b, bv), run_library()
+        check(all(torch.equal(x, y) for x, y in zip(got, lib)),
+              f"merge_sorted kernel == torch.sort(cat, stable=True) + gather "
+              f"({what})")
         plain = [time_ms(run_plain)]
         kern = [time_ms(run_kernel), time_ms(run_kernel)]
         plain.append(time_ms(run_plain))
-        ms, plain_ms = min(kern), min(plain)
+        library = [time_ms(run_library), time_ms(run_library)]
+        ms, plain_ms, library_ms = min(kern), min(plain), min(library)
         print(f"merge_sorted at A={a.numel()} B={b.numel()} lanes ({what}) on "
               f"{smi}: kernel {ms:.3f} ms (runs {kern}), plain {plain_ms:.3f} "
-              f"ms (runs {plain})", flush=True)
+              f"ms (runs {plain}), library sort + gather {library_ms:.3f} ms "
+              f"(runs {library})", flush=True)
         return {"shape": f"A {a.numel()} lanes, B {b.numel()} lanes ({what})",
                 "ms": ms, "plain_ms": plain_ms,
-                **merge_bound(a.numel(), b.numel()), "library_ms": None}
+                **merge_bound(a.numel(), b.numel()), "library_ms": library_ms}
 
     wide = timed(a, av, b, bv, "the fold's spectrum and batch")
 
@@ -689,6 +726,13 @@ def graph_phase(dev, smi: str, tmp: str, reads, fasta: str, rho: int) -> int:
           f"{inserted / wall:.0f} rho-mers/s end to end; {spills} spills; "
           f"phases {phases}; peak device memory {peak / 2**30:.2f} GiB",
           flush=True)
+    if wide:
+        # -B 2, the CLI's default, bounds the wide count's device memory
+        print(f"build-graph -k {rho - 1} -B 2 on {smi}: {spills} spills, "
+              f"torch.cuda.max_memory_allocated {peak} B "
+              f"({peak / 2**30:.3f} GiB) against the 2 GiB of -B 2", flush=True)
+        check(peak <= 2 << 30, f"peak device memory {peak} B <= -B 2 "
+                               f"({2 << 30} B)")
 
     if not wide:
         t0 = time.perf_counter()
@@ -737,6 +781,102 @@ def wide_flush_ms(dev, smi: str, rho: int) -> None:
     print(f"one wide flush (rho {rho}, mode value, {BATCH} x {CHUNK} windows "
           f"into {CAP} lanes holding {int(live)} keys) on {smi}: {ms:.1f} ms "
           f"of device time", flush=True)
+
+
+def wide_flush_memory(dev, smi: str, rho: int) -> None:
+    """Peak device memory of one wide flush, by stage: the k-merize stage
+    alone (``kmerize_planes_wide``, ``canonicalize_wide``, ``to_lanes``) per
+    window of a batch of 1, 2, 4 or 8 chunks, and the whole flush
+    (``batch_step_wide``) into a resident spectrum of S lanes per lane of
+    the merge (S + batch): the bytes that size ``-B`` for wide keys."""
+    import torch
+
+    from gossamer_tpu_torch.ops import engine_wide as ew
+
+    g = torch.Generator(device=dev).manual_seed(5)
+
+    def peak_of(fn):
+        torch.cuda.synchronize(dev)
+        base = torch.cuda.memory_allocated(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        out = fn()
+        torch.cuda.synchronize(dev)
+        del out
+        return torch.cuda.max_memory_allocated(dev) - base
+
+    def kmerize(codes):
+        *limbs, valid = ew.kmerize_planes_wide(codes, rho)
+        limbs = ew.canonicalize_wide(tuple(x.reshape(-1) for x in limbs), rho,
+                                     "value")
+        return (*ew.to_lanes(*limbs), valid)
+
+    for n_chunks in (1, 2, 4, 8):
+        codes = torch.randint(0, 4, (n_chunks, CHUNK + rho - 1), device=dev,
+                              generator=g, dtype=torch.uint8)
+        codes[:, ::101] = 255  # read separators
+        n = n_chunks * CHUNK
+        pk = peak_of(lambda: kmerize(codes))
+        print(f"wide k-merize (rho {rho}, {n} windows) on {smi}: peak {pk} B "
+              f"above the codes, {pk / n:.2f} B a window", flush=True)
+        for lanes in (1 << 22, 1 << 24, CAP):
+            spec = ew.empty_spec_wide(lanes, dev)
+            live = lanes // 2
+            keys = torch.arange(live, device=dev, dtype=torch.int64) * 7919
+            spec[0][:live] = keys >> 40
+            spec[1][:live] = keys
+            spec[2][:live] = 1
+            pk = peak_of(lambda: ew.batch_step_wide(codes, *spec, rho, "value",
+                                                    lanes))
+            print(f"wide flush (rho {rho}, {n} windows into {lanes} lanes) on "
+                  f"{smi}: peak {pk} B above spectrum and codes, "
+                  f"{pk / (lanes + n):.2f} B a merged lane", flush=True)
+            del spec, keys
+        del codes
+
+
+def wide_cap_before_after(dev, smi: str, tmp: str, fasta: str,
+                          rho: int) -> None:
+    """build-graph -k rho-1 of the read set as the CLI sizes it from -B 2
+    now, and as it did before (a cap of (2 << 30) // 48 keys, 8 chunks a
+    flush), in turns: spills, count time, peak device memory."""
+    import torch
+
+    from gossamer_tpu_torch.ops.count import count_rho_mers_files
+
+    def old():
+        return count_rho_mers_files(
+            [fasta], rho, both_strands=True, canonical=False, device=dev,
+            chunk=CHUNK, cap_entries=CAP, batch=BATCH, threads=4, log=logged)
+
+    lines: list[str] = []
+
+    def logged(level, msg):
+        lines.append(msg)
+
+    results = {}
+    for name in ("-B 2 now", "before", "before", "-B 2 now"):
+        torch.cuda.reset_peak_memory_stats(dev)
+        lines.clear()
+        if name == "before":
+            t0 = time.perf_counter()
+            lo, _hi, c = old()
+            wall = time.perf_counter() - t0
+            line = [x for x in lines if x.startswith("count: ")][-1]
+        else:
+            base = os.path.join(tmp, "gB")
+            wall, log = run_build_graph(fasta, base, base + ".log", dev,
+                                        rho - 1)
+            line = "count: " + log.split("count: ")[1].splitlines()[0]
+            lo, _hi, c = read_graph(base)
+        peak = torch.cuda.max_memory_allocated(dev)
+        spills = int(line.split(" chunks, ")[1].split(" spills")[0])
+        print(f"build-graph -k {rho - 1} {name} on {smi}: wall {wall:.3f} s, "
+              f"{spills} spills, peak device memory {peak} B "
+              f"({peak / 2**30:.3f} GiB), {len(lo)} edges; {line}", flush=True)
+        results.setdefault(name, (lo, c))
+    a, b = results.values()
+    check(np.array_equal(a[0], b[0]) and np.array_equal(a[1], b[1]),
+          "the same graph either way")
 
 
 # ------------------------------------------------------------ xenome phases
@@ -1346,8 +1486,328 @@ def assembly_phase(dev, smi: str, tmp: str, genome, reads, rho: int) -> None:
     check(all(same) and not os.path.exists(back + ".edges-hi"),
           f"dump-graph | restore-graph: the {len(suffixes)} files are "
           f"byte-identical ({os.path.getsize(dump)} B of text)")
+
+    # the supergraph of the cleaned graph, before any threading: one
+    # superpath a linear segment, so its contigs are the linear contigs
+    for cmd in ("build-entry-edge-set", "build-supergraph"):
+        walls[cmd], log = run(cmd, [cmd, "-G", src])
+        print(f"  {log.splitlines()[-1].split(chr(9))[-1]}", flush=True)
+    sfa = os.path.join(tmp, "super-contigs.fa")
+    walls["print-contigs (supergraph)"], log = run(
+        "print-contigs (supergraph)", ["print-contigs", "-G", src, "-o", sfa,
+                                       "--min-length", "100"])
+    # the headers differ: a linear contig is named by its segment, a
+    # supergraph contig by its superpath
+    lin, sup = contig_stats(fa)[0], contig_stats(sfa)[0]
+    with open(fa, "rb") as a, open(sfa, "rb") as b:
+        same = a.read() == b.read()
+    check(sorted(lin) == sorted(sup)
+          and f"print-contigs: {len(contigs)} contigs (supergraph)" in log,
+          f"the supergraph's {len(sup)} contigs are the linear contigs' "
+          f"sequences (in the same order: {lin == sup}; files byte-identical: "
+          f"{same})")
     print(f"assembly -k {k} on the host of {smi} (no device work): walls (s) "
           f"{ {name: round(w, 3) for name, w in walls.items()} }", flush=True)
+
+
+# ------------------------------------------------------------ gossple phase
+GK = 25  # gossple -k 25
+# the genome of the gossple cell: the assembly cell's 4.6 Mbp cut to 1.5 Mbp,
+# so that the phase's host stages stay near 150 s (PERF.md section 4)
+G_LEN = 1_500_000
+# (length, families, copies of each) planted in the genome: few copies, so
+# that no read error inside a repeat reaches the trim cutoff
+REPEATS = ((60, 25, 4), (250, 10, 4))
+HOLES = (10, 150)  # stretches no read covers, which pairs span: (count, bp)
+# the valley of the read set's count histogram.  The coverage model infers
+# 2 to 3 here (the repeats' and the holes' counts widen its fitted peak),
+# which keeps read errors of count 2 to 4 in the graph, and thread-pairs then
+# threads a few joins through an error segment (the JAX package does the
+# same): the contigs hold a few bases that are in no genome.
+G_CUTOFF = 5
+
+
+def make_pairs(rng, genome_len=G_LEN, coverage=30, read_len=100, insert=400,
+               insert_sd=40, sub_rate=0.005, pairs_with_n=0.001):
+    """A seeded genome with planted exact repeats, and read pairs from it
+    -> (genome codes, r1, r2 codes (0-3, 4 = N) uint8[n_pairs, read_len]).
+    Each REPEATS family is one random sequence copied into the genome at
+    random places 1 kbp apart: the 60 bp ones are longer than k and shorter
+    than a read, the 250 bp ones longer than a read and shorter than the
+    insert.  No read covers the HOLES, so only pairs join their two sides.
+    Pairs face each other (r1 forward, r2 the reverse complement of the
+    fragment's far end), from either strand; inserts are normal, mean
+    ``insert``, sd ``insert_sd``; one pair in 1000 has an N."""
+    genome = rng.integers(0, 4, genome_len, dtype=np.uint8)
+    n_copies = sum(f * c for _l, f, c in REPEATS)
+    slots = rng.permutation(rng.choice(genome_len // 1000 - 1,
+                                       n_copies + HOLES[0], replace=False)
+                            ) * 1000 + 500
+    at = 0
+    for length, families, copies in REPEATS:
+        for _ in range(families):
+            seq = rng.integers(0, 4, length, dtype=np.uint8)
+            for p in slots[at : at + copies]:
+                genome[p : p + length] = seq
+            at += copies
+    n = genome_len * coverage // (2 * read_len)
+    ins = np.clip(np.rint(rng.normal(insert, insert_sd, n)).astype(np.int64),
+                  read_len, None)
+    starts = rng.integers(0, genome_len - ins + 1)
+    keep = np.ones(n, bool)
+    for h in slots[at:]:
+        for s in (starts, starts + ins - read_len):
+            keep &= (s + read_len <= h) | (s >= h + HOLES[1])
+    starts, ins, n = starts[keep], ins[keep], int(keep.sum())
+    win = np.lib.stride_tricks.sliding_window_view(genome, read_len)
+    r1 = win[starts]
+    r2 = 3 - win[starts + ins - read_len][:, ::-1]
+    flip = rng.random(n) < 0.5  # the fragment of the other strand
+    r1[flip], r2[flip] = r2[flip], r1[flip].copy()
+    for reads in (r1, r2):
+        flat = reads.reshape(-1)
+        n_sub = rng.binomial(flat.size, sub_rate)
+        pos = rng.integers(0, flat.size, n_sub)
+        flat[pos] = (flat[pos] + rng.integers(1, 4, n_sub, dtype=np.uint8)) % 4
+    rows = rng.choice(n, int(n * pairs_with_n), replace=False)
+    half = rng.random(len(rows)) < 0.5
+    for reads, mine in ((r1, rows[half]), (r2, rows[~half])):
+        reads[mine, rng.integers(0, read_len, len(mine))] = 4
+    return genome, r1, r2
+
+
+def write_fastq(path: str, reads: np.ndarray, mate: int) -> None:
+    """``@p<7-digit pair id>/<mate>``, the bases, ``+``, all qualities I."""
+    n, length = reads.shape
+    head = 12
+    rec = np.empty((n, head + 2 * length + 4), np.uint8)
+    rec[:, 0:2] = np.frombuffer(b"@p", np.uint8)
+    idx = np.arange(n)
+    for j in range(7):
+        rec[:, 2 + j] = ord("0") + (idx // 10 ** (6 - j)) % 10
+    rec[:, 9:12] = np.frombuffer(f"/{mate}\n".encode(), np.uint8)
+    rec[:, head : head + length] = ACGTN[reads]
+    rec[:, head + length : head + length + 3] = np.frombuffer(b"\n+\n",
+                                                              np.uint8)
+    rec[:, head + length + 3 : -1] = ord("I")
+    rec[:, -1] = ord("\n")
+    rec.tofile(path)
+
+
+def contig_stats(path: str) -> tuple[list[bytes], int, int]:
+    """(sequences, count, N50) of a FASTA file of contigs."""
+    with open(path, "rb") as f:
+        seqs = [b"".join(r.split(b"\n")[1:]) for r in f.read().split(b">")[1:]]
+    lengths = np.sort(np.array([len(s) for s in seqs], np.int64))[::-1]
+    if not len(lengths):
+        return seqs, 0, 0
+    n50 = int(lengths[np.searchsorted(np.cumsum(lengths),
+                                      (int(lengths.sum()) + 1) // 2)])
+    return seqs, len(seqs), n50
+
+
+def genome_pieces(seq: bytes, g: bytes, grc: bytes) -> list[int]:
+    """Lengths of the fewest pieces ``seq`` splits into, each in ``g`` or in
+    ``grc``: the longest prefix in either, again and again (greedy is
+    optimal, since every piece of a substring is a substring)."""
+    out = []
+    while seq:
+        if seq in g or seq in grc:
+            return out + [len(seq)]
+        lo, hi = 0, len(seq)  # longest prefix in either, by bisection
+        while lo < hi:
+            mid = (lo + hi + 1) // 2
+            if seq[:mid] in g or seq[:mid] in grc:
+                lo = mid
+            else:
+                hi = mid - 1
+        out.append(max(lo, 1))
+        seq = seq[max(lo, 1):]
+    return out
+
+
+def gossple_phase(dev, smi: str, tmp: str, genome_len: int = G_LEN) -> int:
+    """``gossple -k 25 -C 5 --device <dev>`` on read pairs of a genome with
+    planted repeats and coverage holes, every stage: build-graph,
+    trim-graph, prune-tips x4, pop-bubbles, build-entry-edge-set,
+    build-supergraph, thread-pairs, thread-reads, build-scaffold, scaffold,
+    print-contigs.  gossple runs as
+    a user calls it; the smoke wraps ``App.main``, which gossple calls once
+    a stage, to time each stage, give it a log file, read its peak device
+    memory and copy the graph after build-graph and after pop-bubbles.
+    Checks: the build-graph stage's graph == a numpy/``torch.unique`` count
+    of all reads; every N-free piece of every contig, cut where the scaffold
+    printed a gap estimated at 0 or less, is in the genome or its reverse
+    complement; no more contigs and no lower N50 than the
+    linear contigs of the cleaned graph; ``lint-graph`` passes.  Then the
+    two ways ``thread-reads`` can learn read ends (native blocks with a
+    count of read lengths, which it takes; parsed reads) are timed.
+    -> merge_fold launches of the run."""
+    import torch
+
+    from gossamer_tpu_torch.cli import framework
+    from gossamer_tpu_torch.cli.goss import main as goss
+    from gossamer_tpu_torch.cli.gossple import main as gossple
+    from gossamer_tpu_torch.io.factory import PhysicalFileFactory
+    from gossamer_tpu_torch.io.native import native_read_blocks, read_lengths
+    from gossamer_tpu_torch.io.readers import read_file
+    from gossamer_tpu_torch.ops import fold
+
+    rho = GK + 1
+    on_card = dev.type == "cuda"
+    t0 = time.perf_counter()
+    genome, r1, r2 = make_pairs(np.random.default_rng(6), genome_len)
+    lhs, rhs = os.path.join(tmp, "p_1.fastq"), os.path.join(tmp, "p_2.fastq")
+    write_fastq(lhs, r1, 1)
+    write_fastq(rhs, r2, 2)
+    print(f"gossple read set: genome {genome_len} bp with "
+          f"{', '.join(f'{f} {n} bp repeats in {c} copies each' for n, f, c in REPEATS)}; "
+          f"{len(r1)} pairs of {r1.shape[1]} bp, "
+          f"{int((r1 == 4).any(1).sum() + (r2 == 4).any(1).sum())} reads with "
+          f"an N; made in {time.perf_counter() - t0:.1f} s", flush=True)
+
+    base = os.path.join(tmp, "gossple")
+    stages = []
+
+    def copy_graph(to: str) -> None:
+        for suffix in (".header", ".edges-lo", ".edges-hi", ".counts",
+                       "-counts-hist.txt"):
+            if os.path.exists(base + suffix):
+                shutil.copyfile(base + suffix, to + suffix)
+
+    real_main = framework.App.main
+
+    def staged(app, argv):
+        log = os.path.join(tmp, f"gossple-stage{len(stages)}.log")
+        before = fold.merge_fold.launches
+        if on_card:
+            torch.cuda.reset_peak_memory_stats(dev)
+        t1 = time.perf_counter()
+        rc = real_main(app, [*argv, "-l", log])
+        wall = time.perf_counter() - t1
+        peak = torch.cuda.max_memory_allocated(dev) if on_card else 0
+        with open(log) as f:
+            info = [ln.split("\t")[-1] for ln in f.read().splitlines()
+                    if argv[0] in ln.split("\t")[-1]]
+        stages.append({"stage": argv[0], "rc": rc, "wall": wall, "peak": peak,
+                       "merge_fold": fold.merge_fold.launches - before,
+                       "log": info[-1] if info else ""})
+        if argv[0] == "build-graph":
+            copy_graph(base + "_built")
+        elif argv[0] == "pop-bubbles":
+            copy_graph(base + "_cleaned")
+        return rc
+
+    fold.merge_fold.launches = 0
+    framework.App.main = staged
+    try:
+        t0 = time.perf_counter()
+        rc = gossple(["-k", str(GK), "-C", str(G_CUTOFF), "-O", base, "-p",
+                      lhs, rhs, "--device", str(dev)])
+        wall = time.perf_counter() - t0
+    finally:
+        framework.App.main = real_main
+    launches = fold.merge_fold.launches
+    for i, st in enumerate(stages):
+        print(f"  [stage {i}] {st['stage']} on {smi}: wall {st['wall']:.3f} s, "
+              f"peak device memory {st['peak']} B, merge_fold launches "
+              f"{st['merge_fold']}; {st['log']}", flush=True)
+    check(rc == 0 and len(stages) == 11 and all(st["rc"] == 0 for st in stages),
+          f"gossple ran its 11 stages, exit code 0 ({wall:.1f} s)")
+
+    lo, hi, counts = read_graph(base + "_built")
+    olo, oc = read_set_spectrum(np.concatenate([r1, r2]), rho, dev)
+    check(np.array_equal(lo, olo) and np.array_equal(counts, oc)
+          and not hi.any(),
+          f"the build-graph stage's graph == the numpy/torch.unique count of "
+          f"all {2 * len(r1)} reads ({len(olo)} edges)")
+    del olo, oc, r1, r2
+
+    seqs, n_final, n50_final = contig_stats(base + "-contigs.fa")
+    # a gap that the scaffold estimated at 0 or less is printed without N:
+    # the two sides abut, or overlap by -gap bases (``path_contig``), so an
+    # N-free piece is cut there too.  Where the gaps sit comes from the same
+    # contigs printed with --verbose-headers (the path's segments in order).
+    verbose = base + "-contigs-verbose.fa"
+    check(goss(["print-contigs", "-G", base, "--min-length", "100",
+                "--verbose-headers", "-o", verbose, "--device", str(dev)]) == 0
+          and contig_stats(verbose)[0] == seqs,
+          "print-contigs --verbose-headers gives the same contigs")
+    with open(verbose, "rb") as f:
+        heads = [r.split(b"\n", 1)[0] for r in f.read().split(b">")[1:]]
+    g = ACGTN[:4][genome].tobytes()
+    grc = ACGTN[:4][3 - genome[::-1]].tobytes()
+    n_pieces = n_cuts = n_bases = 0
+    bad = []
+    for head, seq in zip(heads, seqs):
+        inside = [0]  # gaps <= 0 between two gaps printed as N
+        for tok in head.split(b"[")[2].split(b"]")[0].split(b":"):
+            if tok.endswith(b"g"):
+                if int(tok[:-1]) > 0:
+                    inside.append(0)
+                else:
+                    inside[-1] += 1
+        parts = re.split(b"N+", seq)
+        if len(parts) != len(inside):
+            bad.append((head.split()[0], "N runs", len(parts) - 1, "gaps > 0",
+                        len(inside) - 1))
+            continue
+        for part, cuts in zip(parts, inside):
+            found = genome_pieces(part, g, grc)
+            n_pieces, n_cuts, n_bases = (n_pieces + 1, n_cuts + cuts,
+                                         n_bases + len(part))
+            if len(found) > cuts + 1 or min(found) < rho:
+                bad.append((head.split()[0], len(part), found, cuts))
+    check(n_final > 0 and not bad,
+          f"every N-free piece of the {n_final} contigs ({n_pieces} pieces, "
+          f"{n_bases} bases), cut at its {n_cuts} gaps estimated at 0 or "
+          f"less, is in the genome or its reverse complement, and each N run "
+          f"is a gap estimated above 0 (not: {bad[:5]})")
+    linear = base + "_cleaned-contigs.fa"
+    check(goss(["print-contigs", "-G", base + "_cleaned", "--min-length",
+                "100", "-o", linear, "--device", str(dev)]) == 0,
+          "print-contigs of the cleaned graph's copy exit code 0")
+    _s, n_linear, n50_linear = contig_stats(linear)
+    check(n_final <= n_linear and n50_final >= n50_linear,
+          f"gossple's {n_final} contigs (N50 {n50_final}) against the cleaned "
+          f"graph's {n_linear} linear contigs (N50 {n50_linear}): no more, "
+          f"N50 no lower")
+    lint = os.path.join(tmp, "gossple-lint.log")
+    rc = goss(["lint-graph", "-G", base, "--device", str(dev), "-l", lint])
+    with open(lint) as f:
+        check(rc == 0 and "lint-graph: ok" in f.read(),
+              "lint-graph passes on gossple's graph")
+    peak = max(st["peak"] for st in stages)
+    print(f"gossple -k {GK} on {smi}: wall {wall:.3f} s, {n_final} contigs, "
+          f"N50 {n50_final} (linear: {n_linear}, N50 {n50_linear}), peak "
+          f"device memory {peak} B ({peak / 2**30:.3f} GiB); stage walls (s) "
+          f"{ {st['stage']: round(st['wall'], 3) for st in stages} }",
+          flush=True)
+
+    # how thread-reads learns where reads end: native blocks (255 ends a
+    # read and stands for N alike) with a count of read lengths from the
+    # files, which it takes, against parsing every read in Python
+    files = [lhs, rhs]
+    t0 = time.perf_counter()
+    n_codes = sum(len(b) for b in native_read_blocks(files, "fastq", 1))
+    blocks_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    n_reads = sum(len(read_lengths(p, "fastq")) for p in files)
+    lengths_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    fac = PhysicalFileFactory()
+    n_parsed = sum(1 for p in files for _r in read_file(p, fac, "fastq"))
+    parsed_s = time.perf_counter() - t0
+    check(n_parsed == n_reads and n_codes >= n_reads,
+          f"read ends: {n_reads} read lengths counted == {n_parsed} reads "
+          f"parsed")
+    print(f"thread-reads' reads on the host of {smi}: native blocks "
+          f"{blocks_s:.3f} s ({n_codes} codes) + read-length count "
+          f"{lengths_s:.3f} s (taken) against Python parsing {parsed_s:.3f} s "
+          f"for {n_reads} reads", flush=True)
+    check(launches > 0, f"merge_fold kernel launched {launches} times in "
+                        f"gossple")
+    return launches
 
 
 # ----------------------------------------------------------- taxonomy phase
@@ -1555,9 +2015,10 @@ def taxonomy_phase(dev, smi: str, tmp: str, inp: dict,
     return build_launches, launches
 
 
-def main() -> int:
+def main(argv=None) -> int:
     import torch
 
+    argv = sys.argv[1:] if argv is None else argv
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false", file=sys.stderr)
         return 2
@@ -1594,6 +2055,16 @@ def main() -> int:
         print(f"== {name}: {time.perf_counter() - t0:.1f} s", flush=True)
         return out
 
+    if argv == ["--wide-memory"]:
+        phase("one wide flush's memory", wide_flush_memory, dev, smi,
+              WIDE_RHO)
+        with tempfile.TemporaryDirectory() as tmp:
+            fasta = os.path.join(tmp, "reads.fa")
+            write_fasta(fasta, make_reads(np.random.default_rng(2026))[1])
+            phase("build-graph -k 55 sized now and before",
+                  wide_cap_before_after, dev, smi, tmp, fasta, WIDE_RHO)
+        return 0
+    check(not argv, f"no arguments, or --wide-memory alone (got {argv})")
     fold_stats = phase("merge_fold kernel", fold_phase, dev, smi)
     merge_stats, merge_more = phase("merge_sorted kernel", merge_phase, dev, smi)
     fold_paths, merge_paths = {}, {}
@@ -1614,6 +2085,8 @@ def main() -> int:
         phase("assembly -k 25", assembly_phase, dev, smi, tmp, genome, reads,
               RHO)
         del reads
+        fold_paths["gossple"] = phase("gossple -k 25", gossple_phase, dev, smi,
+                                      tmp)
         inp = xenome_inputs(tmp)
         fold_paths["xenome index"], merge_paths["xenome classify"] = phase(
             "xenome -K 25", xenome_phase, dev, smi, tmp, inp, XK)
@@ -1638,9 +2111,10 @@ def main() -> int:
               f"{PEAK_BYTES_PER_S / 1e12:.2f} TB/s; kernel {st['ms']:.4f} ms "
               f"= {st['bytes'] / st['ms'] / 1e6:.0f} GB/s, "
               f"{100 * st['bound_ms'] / st['ms']:.1f}% of the bound; plain "
-              f"{st['plain_ms']:.3f} ms; no single PyTorch call computes it; "
-              f"launches per path {paths}",
-              flush=True)
+              f"{st['plain_ms']:.3f} ms; library "
+              + ("none: no PyTorch call computes it" if st["library_ms"] is None
+                 else f"{st['library_ms']:.3f} ms (stable sort + gather)")
+              + f"; launches per path {paths}", flush=True)
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all", flush=True)
     print(json.dumps({"kernels": [
         {"name": "merge_fold", "route": "cuda",

@@ -6,7 +6,7 @@ from __future__ import annotations
 
 import importlib
 
-MODULES = ("basic", "contigs_cmd", "cleanup", "taxo")
+MODULES = ("basic", "contigs_cmd", "cleanup", "assembly", "misc", "taxo")
 
 
 def all_goss_commands():

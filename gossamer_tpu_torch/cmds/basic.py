@@ -14,11 +14,30 @@ from ..cli.framework import Command, CommandError, Context, add_input_options, g
 from ..utils.logging import Timer
 
 
+# Device bytes of one flush of the wide count (keys of k > 30), read off
+# ``python3 chip_smoke.py --wide-memory`` on an H100 at rho 56 (PERF.md):
+# a flush of n windows into a resident spectrum of S lanes peaks at no
+# more than WIDE_KEY_BYTES * S + WIDE_WINDOW_BYTES * n (24 B of resident
+# lanes and up to 114 B of merge and stable-sort workspace a key; up to
+# 146 B of k-merize and merge a window, and the window's code).
+WIDE_KEY_BYTES = 138
+WIDE_WINDOW_BYTES = 147
+FLUSH_CHUNKS = (8, 4, 2, 1)
+
+
 def _chunk_opts(p):
     p.add_argument("-B", "--buffer-size", type=int, default=2,
-                   help="maximum size (in GB) for device buffers; spectra "
-                        "outgrowing them spill to host RAM (the reference's "
-                        "RAM->disk spill, docs/goss.md:327-338)")
+                   help="maximum size (in GB) of the count's device memory; "
+                        "spectra outgrowing it spill to host RAM (the "
+                        "reference's RAM->disk spill, docs/goss.md:327-338). "
+                        "k <= 30: it caps the resident spectrum at 48 B a key, "
+                        "as the JAX CLI does. k > 30: it holds the resident "
+                        "spectrum and one flush together (138 B a key, 147 B a "
+                        "window of the flush): a flush takes 8, 4, 2 or 1 "
+                        "chunks, the most that leave room for twice their "
+                        "windows; where one chunk's flush does not fit, the "
+                        "spectrum gets twice a chunk's windows and the peak "
+                        "passes -B")
     p.add_argument("--chunk-size", type=int, default=1 << 22,
                    help="device batch size in k-mer windows (a multiple "
                         "of 16)")
@@ -26,12 +45,39 @@ def _chunk_opts(p):
                    help="override the device-resident distinct-key cap")
 
 
-def _chunk_kwargs(ctx: Context) -> dict:
-    # ~48B device footprint per distinct key (3 u32 planes + sort workspace
-    # in the JAX engine); the same default keeps the two CLIs' caps equal
-    cap = int(getattr(ctx.opts, "spectrum_cap", 0) or 0) or max(
-        (int(ctx.opts.buffer_size) << 30) // 48, 1 << 20)
-    return {"chunk": int(ctx.opts.chunk_size), "cap_entries": cap,
+def wide_sizing(buffer_gb: int, chunk: int) -> tuple[int, int, bool]:
+    """-B for wide keys -> (cap in keys, chunks a flush, whether the flush
+    fits): the most chunks a flush whose cap can still hold twice its
+    windows within ``buffer_gb`` GiB of device memory."""
+    budget = int(buffer_gb) << 30
+    for batch in FLUSH_CHUNKS:
+        n = batch * chunk
+        cap = (budget - WIDE_WINDOW_BYTES * n) // WIDE_KEY_BYTES
+        if cap >= 2 * n:
+            return cap, batch, True
+    return 2 * chunk, 1, False
+
+
+def _chunk_kwargs(ctx: Context, rho: int) -> dict:
+    from ..ops.engine import narrow_keys
+
+    override = int(getattr(ctx.opts, "spectrum_cap", 0) or 0)
+    chunk = int(ctx.opts.chunk_size)
+    if narrow_keys(rho):
+        # ~48 B device footprint per distinct key (3 u32 planes + sort
+        # workspace in the JAX engine); the same default keeps the two
+        # CLIs' caps equal
+        cap = override or max((int(ctx.opts.buffer_size) << 30) // 48, 1 << 20)
+        batch = FLUSH_CHUNKS[0]
+    else:
+        cap, batch, fits = wide_sizing(ctx.opts.buffer_size, chunk)
+        if not fits:
+            need = (WIDE_KEY_BYTES * cap + WIDE_WINDOW_BYTES * chunk) / 2**30
+            ctx.log("warning", f"-B {ctx.opts.buffer_size}: one flush of "
+                               f"{chunk} windows needs about {need:.2f} GiB of "
+                               f"device memory; -B does not bound it")
+        cap = override or cap
+    return {"chunk": chunk, "cap_entries": cap, "batch": batch,
             "device": ctx.device}
 
 
@@ -44,18 +90,25 @@ def _build_graph_opts(p):
 
 
 def _counted_spectrum(ctx: Context, rho: int, *, both, canon):
-    """Count the input files (native reader when available)."""
-    from ..ops.count import count_rho_mers_files
+    """Count the input files: physical files straight from disk (the
+    native reader when available), any other file factory through its
+    own reads."""
+    from ..cli.framework import iter_reads
+    from ..io.factory import PhysicalFileFactory
+    from ..ops.count import count_rho_mers, count_rho_mers_files
     from ..utils.logging import UnboundedProgressMonitor
 
     files = gather_read_files(ctx)
-    kw = _chunk_kwargs(ctx)
+    kw = _chunk_kwargs(ctx, rho)
     mon = UnboundedProgressMonitor(ctx.log, interval=1 << 26, unit="bases",
                                    label="counting")
-    return count_rho_mers_files(
-        [n for n, _ in files], rho, both_strands=both, canonical=canon,
-        threads=int(getattr(ctx.opts, "num_threads", 1) or 1),
-        progress=mon.tick, log=ctx.log, **kw)
+    kw.update(progress=mon.tick, log=ctx.log)
+    if isinstance(ctx.fac, PhysicalFileFactory):
+        return count_rho_mers_files(
+            [n for n, _ in files], rho, both_strands=both, canonical=canon,
+            threads=int(getattr(ctx.opts, "num_threads", 1) or 1), **kw)
+    return count_rho_mers(iter_reads(ctx, files), rho, both_strands=both,
+                          canonical=canon, **kw)
 
 
 def _build_graph_run(ctx: Context) -> None:

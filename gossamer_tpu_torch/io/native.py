@@ -3,9 +3,10 @@
 Counterpart of ``gossamer_tpu/io/native.py``, narrowed to what the
 counting engines run: the packed chunk reader (narrow keys), the raw code
 chunk reader (wide keys), the symmetric expansion and the 64-bit and
-128-bit spill codecs; and to what the graph queries run on narrow graphs:
+128-bit spill codecs; to what the graph queries run on narrow graphs:
 the blocked rank search, the chain walks, the fused node degrees and the
-fused successor table.  The library is compiled at first use
+fused successor table; and to what threading runs: the read-aligned
+block reader and the rolling k-merizer.  The library is compiled at first use
 from the checkout's ``native/gossio.cpp`` with the flags of
 ``native/Makefile`` into ``gossamer_tpu_torch/_build/``, so it is always
 built for the machine that loads it.  A checked-in ``native/libgossio.so``
@@ -111,6 +112,11 @@ def _load() -> ctypes.CDLL | NativeUnavailable:
     lib.gossio_node_degrees_u64.argtypes = [u64p, ctypes.c_long, ctypes.c_int,
                                             u64p, ctypes.c_long, i64p, i64p,
                                             ctypes.c_int]
+    lib.gossio_kmerize_u64.restype = None
+    lib.gossio_kmerize_u64.argtypes = [u8p, ctypes.c_long, ctypes.c_int, u64p,
+                                       u8p]
+    lib.gossio_next_block.restype = ctypes.c_long
+    lib.gossio_next_block.argtypes = [ctypes.c_void_p, u8p, ctypes.c_long]
     lib.gossio_successor_table_u64.restype = None
     lib.gossio_successor_table_u64.argtypes = [u64p, ctypes.c_long,
                                                ctypes.c_int, i64p, ctypes.c_int]
@@ -363,3 +369,87 @@ def native_successor_table(lo: np.ndarray, rho: int,
     lib.gossio_successor_table_u64(_ptr(lo, ctypes.c_uint64), len(lo), rho,
                                    _ptr(nxt, ctypes.c_int64), threads)
     return nxt
+
+
+# ------------------------------------------------------------------ threading
+def native_kmerize_u64(codes: np.ndarray, rho: int):
+    """255-separated code stream -> (lo u64, valid u8) per window, in one
+    sequential pass.  Narrow keys only (2*rho <= 64)."""
+    if 2 * rho > 64:
+        raise ValueError(f"native kmerize needs 2*rho <= 64 (rho={rho})")
+    lib = load_library()
+    codes = np.ascontiguousarray(codes, dtype=np.uint8)
+    n_win = len(codes) - rho + 1
+    if n_win <= 0:
+        return np.zeros(0, np.uint64), np.zeros(0, np.uint8)
+    lo = np.empty(n_win, dtype=np.uint64)
+    valid = np.empty(n_win, dtype=np.uint8)
+    lib.gossio_kmerize_u64(_ptr(codes, ctypes.c_uint8), len(codes), rho,
+                           _ptr(lo, ctypes.c_uint64), _ptr(valid, ctypes.c_uint8))
+    return lo, valid
+
+
+def native_read_blocks(paths: list[str], fmt: str | None = None,
+                       threads: int = 1) -> Iterator[np.ndarray]:
+    """Read-aligned code blocks (~4 MB each) straight from the native
+    reader: each read's codes followed by 255.  A base other than ACGT is
+    255 too, so a block alone does not tell read ends from ``N``s
+    (:func:`read_lengths` does).  With ``threads`` above 1, blocks of
+    different files interleave.  Raises :class:`NativeUnavailable` before
+    reading anything when the library is missing."""
+    return _read_blocks(load_library(), paths, fmt, threads)
+
+
+def _read_blocks(lib, paths, fmt, threads):
+    arr = (ctypes.c_char_p * len(paths))(*[p.encode() for p in paths])
+    handle = lib.gossio_open(arr, len(paths), FMT_CODE.get(fmt, 0),
+                             max(int(threads), 1))
+    cap = (4 << 20) + (1 << 16)
+    try:
+        while True:
+            buf = np.empty(cap, dtype=np.uint8)
+            n = lib.gossio_next_block(handle, _ptr(buf, ctypes.c_uint8), cap)
+            if n == 0:
+                break
+            if n < 0:
+                cap = -n
+                continue
+            yield buf[:n]
+    finally:
+        lib.gossio_close(handle)
+
+
+def read_lengths(path: str, fmt: str) -> np.ndarray:
+    """Lengths of the reads the native reader emits for one file, in
+    order, by the line rules of its parser (``native/gossio.cpp``
+    ``parseFile``/``handleLine``): lines end at ``\\n``, a trailing ``\\r``
+    is dropped, FASTQ takes the second line of every four, FASTA joins the
+    non-empty lines between headers, line format takes every non-empty
+    line.  numpy over the file's bytes (gzip is inflated first)."""
+    import gzip
+
+    with open(path, "rb") as f:
+        raw = f.read()
+    if raw[:2] == b"\x1f\x8b":
+        raw = gzip.decompress(raw)
+    buf = np.frombuffer(raw, dtype=np.uint8)
+    nl = np.flatnonzero(buf == ord("\n"))
+    starts = np.concatenate([[0], nl + 1])
+    ends = np.concatenate([nl, [len(buf)]])
+    if starts[-1] == len(buf):  # no unterminated last line
+        starts, ends = starts[:-1], ends[:-1]
+    ln = ends - starts
+    cr = ln > 0
+    cr[cr] = buf[ends[cr] - 1] == ord("\r")
+    ln = ln - cr
+    if fmt == "fastq":
+        ln = ln[1::4]
+        return ln[ln > 0]
+    if fmt == "fasta":
+        head = np.zeros(len(ln), dtype=bool)
+        head[ln > 0] = buf[starts[ln > 0]] == ord(">")
+        seq = (ln > 0) & ~head
+        group = np.cumsum(head)[seq]
+        total = np.bincount(group, weights=ln[seq], minlength=1)
+        return total[np.bincount(group, minlength=1) > 0].astype(np.int64)
+    return ln[ln > 0]

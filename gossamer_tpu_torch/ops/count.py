@@ -74,6 +74,7 @@ def count_chunks(
     log=None,
     n_devices: int = 1,
     fold: bool = True,
+    batch: int = 8,
 ):
     """Count over chunks of ``chunk`` windows -> sorted (lo, hi, counts)
     host arrays.  Narrow keys take ``(words, inval)`` packed chunks, wide
@@ -86,7 +87,8 @@ def count_chunks(
     order (build-kmer-set semantics, ``src/GossCmdBuildKmerSet.tcc:248-249``).
     ``fold``
     selects the merge-fold kernel or its plain version (narrow engine
-    argument; the wide engine has no kernel).
+    argument; the wide engine has no kernel).  ``batch`` chunks make one
+    flush.
     """
     _check_supported(rho, n_devices)
     narrow = narrow_keys(rho)
@@ -104,12 +106,12 @@ def count_chunks(
     for item in chunks:
         if eng is None and narrow:
             cap = cap_entries or min(1 << 25, max(1 << 16, 4 * chunk))
-            eng = SpectrumEngine(rho, mode, chunk, device, cap=cap,
-                                 on_spill=on_spill, fold=fold)
+            eng = SpectrumEngine(rho, mode, chunk, device, batch=batch,
+                                 cap=cap, on_spill=on_spill, fold=fold)
         elif eng is None:
             cap = cap_entries or min(1 << 24, max(1 << 16, 4 * chunk))
-            eng = SpectrumEngineWide(rho, mode, chunk, device, cap=cap,
-                                     on_spill=on_spill)
+            eng = SpectrumEngineWide(rho, mode, chunk, device, batch=batch,
+                                     cap=cap, on_spill=on_spill)
         with profile.context("count/add_chunk"):
             if narrow:
                 eng.add_chunk_packed(np.asarray(item[0]), np.asarray(item[1]))

@@ -120,3 +120,78 @@ def test_wide_keys_raise(tiny):
             for l, h, c in zip(lo, hi, counts)} == want and hi.any()
     with pytest.raises(ValueError, match="126 bits"):
         count_rho_mers_files([fa], 64, **kw)
+
+
+# ----------------------------------------------- the file factory (C.9)
+@pytest.mark.parametrize("cmd,k", [("build-graph", "11"), ("build-graph", "40"),
+                                   ("build-kmer-set", "11")])
+def test_counting_reads_through_the_file_factory(tiny, cmd, k):
+    """A command given a non-physical file factory counts the reads it
+    holds, as the JAX command does, and writes the files of a count from
+    disk."""
+    from gossamer_tpu_torch.cli.framework import Context
+    from gossamer_tpu_torch.cli.goss import build_app
+    from gossamer_tpu_torch.io.factory import StringFileFactory
+    from gossamer_tpu_torch.utils.logging import Logger
+
+    tmp, _reads, fa = tiny
+    fac = StringFileFactory()
+    fac.add_file("in-memory.fa", open(fa, "rb").read())
+    app = build_app()
+    args = [cmd, "-k", k, "--chunk-size", "4096", "--device", "cpu"]
+    ns = app.build_parser().parse_args(args + ["-I", "in-memory.fa", "-O", "m"])
+    app.commands[cmd].run(Context(fac=fac, log=Logger(None), opts=ns,
+                                  device=torch.device("cpu")))
+    assert not os.path.exists("in-memory.fa")
+    assert port_main(args + ["-I", fa, "-O", str(tmp / "d")]) == 0
+    disk = {n[1:]: (tmp / n).read_bytes() for n in os.listdir(tmp)
+            if n.startswith("d.") or n.startswith("d-")}
+    assert {n[1:]: b for n, b in fac.files.items() if n[:2] in ("m.", "m-")} \
+        == disk and len(disk) >= 3
+
+
+# ------------------------------------------------ -B for wide keys (C.10)
+@pytest.mark.parametrize("chunk", [1 << 22, 1 << 20, 4096])
+def test_wide_sizing_keeps_a_flush_within_the_buffer(chunk):
+    from gossamer_tpu_torch.cmds.basic import (FLUSH_CHUNKS, WIDE_KEY_BYTES,
+                                               WIDE_WINDOW_BYTES, wide_sizing)
+
+    for gb in (1, 2, 3, 4, 8, 16, 80):
+        cap, batch, fits = wide_sizing(gb, chunk)
+        n = batch * chunk
+        peak = WIDE_KEY_BYTES * cap + WIDE_WINDOW_BYTES * n
+        assert batch in FLUSH_CHUNKS and cap >= 2 * n
+        assert fits == (peak <= gb << 30)
+        if batch < FLUSH_CHUNKS[0] and fits:  # no more chunks would fit
+            m = 2 * batch * chunk
+            assert WIDE_KEY_BYTES * 2 * m + WIDE_WINDOW_BYTES * m > gb << 30
+    assert wide_sizing(2, 1 << 22) == (11093630, 1, True)
+    assert wide_sizing(1, 1 << 22)[2] is False
+
+
+def test_buffer_size_leaves_the_narrow_cap_and_every_spectrum(tiny):
+    from gossamer_tpu_torch.cli.goss import build_app
+    from gossamer_tpu_torch.cmds.basic import _chunk_kwargs, wide_sizing
+
+    _tmp, _reads, fa = tiny
+    ns = build_app().build_parser().parse_args(
+        ["build-graph", "-k", "11", "-I", fa, "-O", "g", "-B", "3"])
+
+    class Ctx:
+        opts, device = ns, torch.device("cpu")
+
+        @staticmethod
+        def log(*_a):
+            pass
+
+    assert _chunk_kwargs(Ctx, 12)["cap_entries"] == (3 << 30) // 48
+    assert _chunk_kwargs(Ctx, 12)["batch"] == 8
+    wide = _chunk_kwargs(Ctx, 41)
+    assert (wide["cap_entries"], wide["batch"], True) == wide_sizing(3, 1 << 22)
+    kw = dict(both_strands=True, canonical=False, device=torch.device("cpu"),
+              chunk=256)
+    want = count_rho_mers_files([fa], 41, **kw)
+    for cap, batch in ((600, 1), (2000, 2)):  # small caps: the count spills
+        got = count_rho_mers_files([fa], 41, cap_entries=cap, batch=batch, **kw)
+        for a, b in zip(want, got):
+            assert np.array_equal(a, b)

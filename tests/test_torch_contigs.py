@@ -6,9 +6,10 @@ One graph per k is built by the port (``build-graph --device cpu``; its
 files equal the JAX CLI's, ``tests/test_torch_cli.py``) and then goes
 through ``trim-graph``, ``prune-tips --iterate 4``, ``pop-bubbles``,
 ``print-contigs`` with every flag, ``dump-graph``, ``restore-graph``,
-``lint-graph`` and ``graph-to-kmer-set`` in both CLIs.  Also here: the two
-raises of what is not ported, the ``--device`` default of every command,
-and that no module of the port imports JAX or the JAX package.
+``lint-graph`` and ``graph-to-kmer-set`` in both CLIs, and ``print-contigs``
+of a supergraph.  Also here: the raises of what is not ported, the
+``--device`` default of every command, and that no module of the port
+imports JAX or the JAX package.
 """
 
 import ast
@@ -197,8 +198,11 @@ def test_lint_graph_reports_a_broken_graph(built, capsys):
     assert "reverse complement counts differ" in capsys.readouterr().err
 
 
-# ------------------------------------------------------- what is not ported
+# ------------------------------------------- supergraphs and what is not ported
 def test_print_contigs_with_a_supergraph_raises(built, capsys):
+    """A graph with a supergraph beside it prints supergraph contigs, as the
+    JAX CLI does; a supergraph without its entry-edge set raises and
+    writes nothing."""
     tmp, g, _k = built
     sg = tmp / "g-supergraph.header"
     sg.write_text("{}")
@@ -206,10 +210,23 @@ def test_print_contigs_with_a_supergraph_raises(built, capsys):
         out = tmp / "never.fa"
         assert port_main(["print-contigs", "-G", g, "-o", str(out),
                           "--device", "cpu"]) == 1
-        assert "supergraph contigs are not ported" in capsys.readouterr().err
+        assert "g-entries.header" in capsys.readouterr().err
         assert not out.exists()
     finally:
         sg.unlink()
+    popped = str(tmp / "sgc")
+    run_port(["trim-graph", "-G", g, "-O", popped, "-C", "2"])
+    for args in (["build-entry-edge-set", "-G", popped],
+                 ["build-supergraph", "-G", popped]):
+        run_jax(args)
+        entries = files(tmp, "sgc")
+        run_port(args)
+        assert files(tmp, "sgc") == entries, args
+    for i, flags in enumerate(FLAGS[:5]):
+        cj, cp = tmp / f"s{i}_j.fa", tmp / f"s{i}_p.fa"
+        run_jax(["print-contigs", "-G", popped, "-o", str(cj), *flags])
+        run_port(["print-contigs", "-G", popped, "-o", str(cp), *flags])
+        assert cj.read_bytes() == cp.read_bytes() != b"", flags
 
 
 @pytest.mark.parametrize("cmd", ["trim-graph", "prune-tips", "pop-bubbles"])
@@ -234,6 +251,12 @@ GOSS_ARGS = {
     "pop-bubbles": ["-G", "g", "-O", "h"], "print-contigs": ["-G", "g"],
     "annotate-kmers": ["-G", "g", "--annot-list", "a", "--taxonomy", "t"],
     "classify-reads": ["-G", "g", "-I", "x.fa"],
+    "build-entry-edge-set": ["-G", "g"], "build-supergraph": ["-G", "g"],
+    "thread-reads": ["-G", "g", "-I", "x.fa"],
+    "thread-pairs": ["-G", "g", "-I", "x.fa", "-I", "y.fa"],
+    "build-scaffold": ["-G", "g", "-I", "x.fa", "-I", "y.fa"],
+    "scaffold": ["-G", "g"], "merge-graphs": ["-G", "g", "-G", "h", "-O", "i"],
+    "count-components": ["-G", "g"],
 }
 
 
