@@ -3,7 +3,10 @@
 and wide keys), the assembler from that graph to contigs and to a supergraph,
 the ``gossple`` pipeline end to end, ``xenome index`` + ``classify`` (narrow
 and wide), the two-sort periodic classify engine, ``electus index`` +
-``classify``, the taxonomy commands, and both hand-written kernels.
+``classify``, the taxonomy commands, the long tail of ``goss`` (set algebra,
+read and graph utilities, variants, fix-reads, the supergraph exports, the
+reference's binary format), ``translucent`` and ``espresso``, and both
+hand-written kernels.
 
     python3 chip_smoke.py
     python3 chip_smoke.py --wide-memory   # what sizes -B for wide keys
@@ -88,7 +91,29 @@ read set sized by ``-B 2`` now and with the cap it had before, in turns
     drawn from the shared segment must land on the genus, ``merge_sorted``
     must launch once a batch, and ``join_ranks_batch`` on the card must equal
     the same call on CPU tensors.
-12. Prints for each kernel its bound (every input byte read once and every
+12. long tail, on what the earlier phases left: ``build-kmer-set -k 25`` of
+    the four references (== their numpy sets), ``merge-kmer-sets``,
+    ``intersect-kmer-sets``, ``subtract-kmer-set`` of the first two (==
+    numpy's merge of the sorted sets),
+    ``merge-and-annotate-kmer-sets`` (== numpy bits) and
+    ``compute-near-kmers`` on the card (== a numpy probe of every
+    substitution on 20,000 sampled k-mers), ``pool-samples`` of the four;
+    on the assembly cell's graphs ``estimate-errors`` (== the numpy error
+    mass), ``detect-variants`` of the raw graph against the cleaned one (==
+    numpy, line for line), ``trim-paths -C 5`` of the graph trimmed at 2,
+    ``build-subgraph`` of 1,000 reads at radius 1 (== numpy) and
+    ``dot-graph`` of it, ``extract-reads`` of 100,000 reads and
+    ``filter-reads`` of 100,000 xenome reads against the graft's set (==
+    per-read oracles), ``extract-core-genome`` of three graphs (== numpy),
+    ``fix-reads`` of 500 reads (reads equal to the genome before and
+    after); on gossple's output ``build-edge-index``, ``dot-supergraph``,
+    ``clip-links``, ``build-db`` (one row per superpath) and ``upgrade-graph
+    --format reference`` read back equal; ``translucent`` build-graph (==
+    a count; the fold kernel), trim-graph, trim-relative, prune-tips,
+    pop-bubbles, assemble on pairs of a seeded 100-gene transcriptome
+    (isoforms recovered); ``espresso`` single, multi, sparse-single, query
+    (== numpy and per-read oracles) and similarity.
+13. Prints for each kernel its bound (every input byte read once and every
     output byte written once at the card's memory rate), its time, its
     share of the bound and its launches on each path, then one JSON line
     with both kernels, then ``{"ok": true, ...}``.
@@ -125,10 +150,15 @@ CHUNK = 1 << 22
 BATCH = 8
 
 
+STARTED = time.perf_counter()
+
+
 def check(ok, what: str) -> None:
+    """Raise unless ``ok``; else print ``what`` with the seconds since the
+    script started (the gaps between checks are the oracles' time)."""
     if not ok:
         raise RuntimeError(f"check failed: {what}")
-    print(f"  ok: {what}", flush=True)
+    print(f"  ok ({time.perf_counter() - STARTED:.1f} s): {what}", flush=True)
 
 
 def card_line() -> str:
@@ -603,11 +633,30 @@ def unique128(lo: np.ndarray, hi: np.ndarray, return_counts: bool = False):
     return lo[new], hi[new], np.diff(np.append(first, len(lo)))
 
 
+def merged_unique(*runs: np.ndarray) -> np.ndarray:
+    """Distinct keys of ascending uint64 runs: a stable sort (timsort) of
+    their concatenation only merges the runs, where ``np.unique`` sorts
+    10^7 keys from scratch (tens of seconds on the card's host)."""
+    x = np.concatenate(runs)
+    x.sort(kind="stable")
+    keep = np.ones(len(x), bool)
+    keep[1:] = x[1:] != x[:-1]
+    return x[keep]
+
+
 def lookup128(set_lo, set_hi, qlo, qhi) -> np.ndarray:
     """Index in the sorted distinct set of each query, -1 where absent."""
     n, m = len(set_lo), len(qlo)
     if not set_hi.any() and not qhi.any():
-        r = np.minimum(np.searchsorted(set_lo, qlo), n - 1)
+        # queries in ascending order walk the set in order; in read order
+        # every probe of a set of millions of keys misses the cache
+        r = np.empty(m, np.int64)
+        if m < 2 or bool((qlo[1:] >= qlo[:-1]).all()):
+            r[:] = np.searchsorted(set_lo, qlo)
+        else:
+            order = np.argsort(qlo)
+            r[order] = np.searchsorted(set_lo, qlo[order])
+        r = np.minimum(r, n - 1)
         return np.where(set_lo[r] == qlo, r, -1)
     lo = np.concatenate([set_lo, qlo])
     hi = np.concatenate([set_hi, qhi])
@@ -1904,8 +1953,8 @@ def taxonomy_phase(dev, smi: str, tmp: str, inp: dict,
     kset = KmerSet.read(ks, fac)
     annot = read_array(fac, ks + ".annotation")
     sets = inp["eref_sets"]
-    ulo, uhi = unique128(np.concatenate([s[0] for s in sets]),
-                         np.concatenate([s[1] for s in sets]))
+    ulo = merged_unique(*[s[0] for s in sets])
+    uhi = np.zeros_like(ulo)
     check(np.array_equal(kset.lo, ulo) and np.array_equal(kset.hi, uhi),
           f"k-mer set of {kset.count} {k}-mers == the union of the "
           f"references' numpy sets")
@@ -2015,6 +2064,645 @@ def taxonomy_phase(dev, smi: str, tmp: str, inp: dict,
     return build_launches, launches
 
 
+# ---------------------------------------------------------- long-tail phase
+# what the phase cuts, against the sizes of the cells it reuses (PERF.md
+# section 4): per-read Python in extract-reads, filter-reads, espresso and
+# fix-reads, per-edge Python in dot-graph
+LT_READS = 100_000  # extract-reads, filter-reads, espresso single/sparse-single
+LT_QUERY = 10_000  # espresso query
+LT_SEEDS = 1_000  # build-subgraph's seed reads (radius 1)
+LT_FIX = 500  # fix-reads: ~20 ms a read of Python pairing on the card's host
+TX_GENES = 100  # translucent: genes of three exons, two isoforms each
+TX_RHO = 26  # translucent build-graph -k 25
+
+
+def lt_runner(tmp: str, dev, walls: dict):
+    """-> run(main, args, name, stdout=False) -> (log text, stdout): one call
+    of a port CLI with ``--device`` and a log file, timed into ``walls``,
+    exit code 0 checked."""
+    device = ["--device", str(dev)]
+    log = os.path.join(tmp, "lt.log")
+
+    def run(main, args, name, stdout=False):
+        out = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(out) if stdout else contextlib.nullcontext():
+            rc = main([*args, *device, "-l", log])
+        walls[name] = time.perf_counter() - t0
+        check(rc == 0, f"{name} exit code 0")
+        with open(log) as f:
+            return f.read(), out.getvalue()
+
+    return run
+
+
+def window_ranks(reads: np.ndarray, k: int, set_lo: np.ndarray,
+                 normalize: bool, dev):
+    """Each read on its own, windows holding an N skipped: (read of each
+    k-window, FNV-normalized if asked; its index in the sorted narrow set,
+    -1 where absent).  The windows, in read order, are looked up by
+    ``torch.searchsorted`` on ``dev`` (keys below 2^62: int64 order)."""
+    import torch
+
+    lo, hi, valid = window_keys(reads, k)
+    row = np.broadcast_to(np.arange(len(reads))[:, None], lo.shape)[valid]
+    q = normalized(lo[valid], hi[valid], k)[0] if normalize else lo[valid]
+    r = torch.searchsorted(torch.from_numpy(set_lo.view(np.int64)).to(dev),
+                           torch.from_numpy(q.view(np.int64)).to(dev))
+    r = r.clamp_(max=len(set_lo) - 1).cpu().numpy()
+    return row, np.where(set_lo[r] == q, r, -1)
+
+
+def graft_windows(inp: dict, graft_lo: np.ndarray, dev):
+    """:func:`window_ranks` of the first LT_READS xenome reads' normalized
+    25-windows in the graft's set, made once for filter-reads and espresso."""
+    if "lt_graft_windows" not in inp:
+        inp["lt_graft_windows"] = window_ranks(inp["reads"][:LT_READS], EK,
+                                               graft_lo, True, dev)
+    return inp["lt_graft_windows"]
+
+
+def key_bases(keys: np.ndarray, k: int) -> np.ndarray:
+    """uint8[n, k] ASCII bases of narrow keys."""
+    shifts = U64(2) * np.arange(k - 1, -1, -1, dtype=U64)
+    return ACGTN[((keys[:, None] >> shifts) & U64(3)).astype(np.uint8)]
+
+
+def set_algebra_part(dev, smi: str, tmp: str, inp: dict, run, goss,
+                     n_sample: int = 20_000) -> tuple[int, int]:
+    """``build-kmer-set -k 25`` of the four electus references, the set
+    algebra of the first two, ``merge-and-annotate-kmer-sets`` and
+    ``compute-near-kmers`` on the card, ``pool-samples`` of all four ->
+    (merge_fold launches of the four builds, peak device memory of
+    compute-near-kmers)."""
+    import torch
+
+    from gossamer_tpu_torch.classify.annotated_set import AnnotatedKmerSet
+    from gossamer_tpu_torch.graph.kmer_set import KmerSet
+    from gossamer_tpu_torch.io.artifacts import read_array
+    from gossamer_tpu_torch.io.factory import PhysicalFileFactory
+    from gossamer_tpu_torch.ops import fold
+
+    k, fac, on_card = EK, PhysicalFileFactory(), dev.type == "cuda"
+    names = ("graft", "host", "ref2", "ref3")
+    bases = [os.path.join(tmp, f"lt_{n}") for n in names]
+    fold.merge_fold.launches = 0
+    for base, path, name in zip(bases, inp["eref_fa"], names):
+        run(goss, ["build-kmer-set", "-k", str(k), "-I", path, "-O", base],
+            f"build-kmer-set {name}")
+    launches = fold.merge_fold.launches
+    check(launches > 0 or not on_card,
+          f"merge_fold kernel launched {launches} times in the four "
+          f"build-kmer-set runs")
+    want = inp["eref_sets"]
+    sets = [KmerSet.read(b, fac) for b in bases]
+    check(all(np.array_equal(s.lo, w[0]) and not s.hi.any()
+              for s, w in zip(sets, want)),
+          f"the four sets ({[s.count for s in sets]} {k}-mers) == the numpy "
+          f"sets of the references")
+    a, b = want[0][0], want[1][0]
+    a_in_b = np.isin(a, b, assume_unique=True)  # a merge sort of two runs
+    union = merged_unique(a, b)
+    for cmd, oracle in (("merge-kmer-sets", union),
+                        ("intersect-kmer-sets", a[a_in_b]),
+                        ("subtract-kmer-set", a[~a_in_b])):
+        out = os.path.join(tmp, f"lt_{cmd.split('-')[0]}")
+        run(goss, [cmd, "-G", bases[0], "-G", bases[1], "-O", out], cmd)
+        got = KmerSet.read(out, fac)
+        check(np.array_equal(got.lo, oracle) and len(oracle) > 0,
+              f"{cmd}: {got.count} k-mers == numpy's merge of the sorted sets")
+
+    ann_base = os.path.join(tmp, "lt_ann")
+    run(goss, ["merge-and-annotate-kmer-sets", "-G", bases[0], "-G", bases[1],
+               "-O", ann_base], "merge-and-annotate-kmer-sets")
+    ann = AnnotatedKmerSet.read(ann_base, fac)
+    in_a = np.isin(union, a, assume_unique=True)
+    in_b = np.isin(union, b, assume_unique=True)
+    check(np.array_equal(ann.kset.lo, union) and np.array_equal(ann.lhs, in_a)
+          and np.array_equal(ann.rhs, in_b),
+          f"merge-and-annotate: {ann.kset.count} k-mers and both bit vectors "
+          f"== numpy ({int((in_a & in_b).sum())} common)")
+    if on_card:
+        torch.cuda.reset_peak_memory_stats(dev)
+    log, _ = run(goss, ["compute-near-kmers", "-G", ann_base],
+                 "compute-near-kmers")
+    peak = torch.cuda.max_memory_allocated(dev) if on_card else 0
+    near = AnnotatedKmerSet.read(ann_base, fac)
+    gray = int(log.split("compute-near-kmers: ")[1].split()[0])
+    cleared = (ann.lhs != near.lhs) | (ann.rhs != near.rhs)
+    excl = ann.lhs != ann.rhs
+    # oracle on every cleared k-mer and a sample of the other exclusive
+    # ones: every single-base substitution of the low K bits (the
+    # reference's probes), normalized and looked up in the union
+    rng = np.random.default_rng(5)
+    rest = np.nonzero(excl & ~cleared)[0]
+    idx = np.sort(np.concatenate([np.nonzero(cleared)[0],
+                                  rng.choice(rest, n_sample, replace=False)]))
+    x, zx, zu = union[idx], np.zeros(len(idx), U64), np.zeros_like(union)
+    found = np.zeros(len(idx), bool)
+    for j in range(k):
+        for bit in (1, 2, 3):
+            yn = normalized(x ^ U64(bit << j), zx, k)[0]
+            r = lookup128(union, zu, yn, zx)
+            rr = np.maximum(r, 0)
+            found |= ((r >= 0) & (in_a[rr] != in_b[rr]) & (in_a[rr] != in_a[idx]))
+    check(gray == int(cleared.sum()) > 0 and not (cleared & ~excl).any()
+          and not (near.lhs | near.rhs)[cleared].any()
+          and np.array_equal(cleared[idx], found),
+          f"compute-near-kmers on the card: {gray} marginal k-mers, both bits "
+          f"cleared on them only; on those and {n_sample} sampled other "
+          f"exclusive k-mers, the marginal ones == a numpy probe of every "
+          f"substitution ({int(found.sum())})")
+
+    pool = os.path.join(tmp, "lt_pool")
+    run(goss, ["pool-samples", *[x for b_ in bases for x in ("-G", b_)], "-O",
+               pool], "pool-samples")
+    pooled = KmerSet.read(pool, fac)
+    mask = read_array(fac, pool + ".sample-mask")
+    ulo = merged_unique(*[w[0] for w in want])
+    held = np.zeros(len(ulo), U64)
+    for i, w in enumerate(want):
+        held[np.searchsorted(ulo, w[0])] |= U64(1 << i)
+    check(np.array_equal(pooled.lo, ulo) and np.array_equal(mask, held),
+          f"pool-samples: {pooled.count} k-mers x 4 samples, set and "
+          f"presence masks == numpy")
+    print(f"set algebra -k {k} on {smi}: sets of {[s.count for s in sets]} "
+          f"k-mers, {launches} merge_fold launches in the builds; "
+          f"compute-near-kmers {gray} marginal of {int(excl.sum())} exclusive, "
+          f"peak device memory {peak} B ({peak / 2**30:.3f} GiB)", flush=True)
+    return launches, peak
+
+
+def graphs_part(dev, smi: str, tmp: str, inp: dict, genome, head, run,
+                goss) -> None:
+    """The assembly cell's graphs: ``estimate-errors`` and ``detect-variants``
+    of the raw ``-k 25`` graph, ``trim-paths`` of the graph trimmed at 2,
+    ``build-subgraph`` (radius 1) and ``dot-graph``, ``extract-reads``,
+    ``fix-reads`` on the cleaned graph, ``filter-reads`` of xenome reads
+    against the graft's set, ``extract-core-genome`` of three graphs."""
+    from gossamer_tpu_torch.core import kmer as K
+    from gossamer_tpu_torch.graph.kmer_set import KmerSet
+    from gossamer_tpu_torch.io.factory import PhysicalFileFactory
+
+    rho, k, fac = RHO, RHO - 1, PhysicalFileFactory()
+    raw, clean = os.path.join(tmp, f"g{rho}"), os.path.join(tmp, "asm_pop")
+    rlo, _rhi, rcounts = read_graph(raw)
+    clo, _chi, _cc = read_graph(clean)
+
+    # estimate-errors: the printed error mass == the numpy histogram's
+    _log, out = run(goss, ["estimate-errors", "-G", raw], "estimate-errors",
+                    stdout=True)
+    vals = dict(line.split("\t") for line in out.splitlines())
+    cutoff = int(vals["error-cutoff"])
+    mass = float(rcounts[rcounts < cutoff].sum()) / float(rcounts.sum())
+    check(list(vals) == ["estimated-coverage", "error-cutoff",
+                         "error-mass-fraction"]
+          and 2 <= cutoff <= 10 and 15 <= int(vals["estimated-coverage"]) <= 30
+          and abs(float(vals["error-mass-fraction"]) - mass) <= 1e-5 * mass,
+          f"estimate-errors of the raw graph: {vals} (numpy error mass "
+          f"{mass:.6g})")
+
+    # detect-variants: raw graph against the cleaned one == numpy
+    var = os.path.join(tmp, "lt_variants.txt")
+    run(goss, ["detect-variants", "--graph-ref", clean, "--graph-target", raw,
+               "-o", var], "detect-variants")
+    novel = lookup128(clo, np.zeros_like(clo), rlo, np.zeros_like(rlo)) < 0
+    frm = (rlo >> U64(2)) << U64(2)
+    anchored = np.searchsorted(clo, frm + U64(4)) > np.searchsorted(clo, frm)
+    sel = np.nonzero(novel & anchored)[0]
+    strs = key_bases(rlo[sel], rho)
+    want = "".join(f"{s}\t{c}\n" for s, c in zip(
+        (row.tobytes().decode() for row in strs), rcounts[sel].tolist()))
+    with open(var) as f:
+        got = f.read()
+    check(got == want and len(sel) > 0,
+          f"detect-variants: {len(sel)} edges of the raw graph absent from "
+          f"the cleaned one with their from-node in it == numpy, line for "
+          f"line")
+    del strs, want, got, novel, frm, anchored
+
+    # trim-paths of the graph trimmed at 2 (tips and bubbles left)
+    c2, tp = os.path.join(tmp, "asm_c2_trim"), os.path.join(tmp, "lt_trimpaths")
+    log, _ = run(goss, ["trim-paths", "-G", c2, "-O", tp, "-C", "5"], "trim-paths")
+    # the cleaned graph holds the genome's 26-mers (the assembly cell's
+    # check), so an edge outside it is an error
+    before, after = read_graph(c2)[0], read_graph(tp)[0]
+    kept = np.isin(clo, after, assume_unique=True).mean()
+    err_before = len(before) - int(np.isin(before, clo, True).sum())
+    err_after = len(after) - int(np.isin(after, clo, True).sum())
+    check(np.isin(after, before, assume_unique=True).all() and kept >= 0.999
+          and err_after < err_before and len(after) < len(before),
+          f"trim-paths -C 5 of the graph trimmed at 2: {len(before)} -> "
+          f"{len(after)} edges, edges off the cleaned graph {err_before} -> "
+          f"{err_after}, {100 * kept:.4f}% of the cleaned graph's kept "
+          f"({log.splitlines()[-1].split(chr(9))[-1]})")
+
+    # build-subgraph from LT_SEEDS reads at radius 1 == numpy, then dot-graph
+    seeds = os.path.join(tmp, "lt_seeds.fa")
+    write_fasta(seeds, head[:LT_SEEDS])
+    sub = os.path.join(tmp, "lt_sub")
+    run(goss, ["build-subgraph", "-G", clean, "-I", seeds, "-O", sub,
+               "--radius", "1"], "build-subgraph")
+    wlo, _whi, valid = window_keys(head[:LT_SEEDS], rho)
+    q = wlo[valid]
+    qr = K.reverse_complement(q, np.zeros_like(q), rho)[0]
+    z = np.zeros_like(clo)
+    r = np.concatenate([lookup128(clo, z, q, np.zeros_like(q)),
+                        lookup128(clo, z, qr, np.zeros_like(qr))])
+    seed = np.unique(r[r >= 0])
+    to = (clo[seed] & U64((1 << (2 * k)) - 1)) << U64(2)
+    r0, r1 = np.searchsorted(clo, to), np.searchsorted(clo, to + U64(4))
+    succ = np.concatenate([(r0 + j)[r0 + j < r1] for j in range(4)])
+    rcs = K.reverse_complement(clo[seed], np.zeros(len(seed), U64), rho)[0]
+    want_sub = clo[np.unique(np.concatenate(
+        [seed, succ, np.searchsorted(clo, rcs)]))]
+    got_sub = read_graph(sub)[0]
+    check(np.array_equal(got_sub, want_sub) and len(seed) > 0,
+          f"build-subgraph of {LT_SEEDS} reads at radius 1: {len(got_sub)} "
+          f"edges == numpy ({len(seed)} hit by the reads)")
+    dot = os.path.join(tmp, "lt_sub.dot")
+    run(goss, ["dot-graph", "-G", sub, "-o", dot, "--label-edges"], "dot-graph")
+    sb = key_bases(got_sub, rho)
+    scounts = read_graph(sub)[2]
+    want_dot = "digraph G {\n" + "".join(
+        f'  "{row[:k].tobytes().decode()}" -> "{row[1:].tobytes().decode()}"'
+        f' [label="{c}"];\n' for row, c in zip(sb, scounts.tolist())) + "}\n"
+    with open(dot) as f:
+        check(f.read() == want_dot,
+              f"dot-graph of the subgraph: {len(got_sub)} labelled edges == "
+              f"numpy")
+
+    # extract-reads of assembly and xenome reads mixed, filter-reads of
+    # xenome reads
+    xreads = inp["reads"][:LT_READS]
+    mixed = np.concatenate([head[: LT_READS // 2], xreads[: LT_READS // 2]])
+    mixed = mixed[np.random.default_rng(3).permutation(len(mixed))]
+    hfa = os.path.join(tmp, "lt_mixed.fa")
+    write_fasta(hfa, mixed)
+    ext = os.path.join(tmp, "lt_extract.fa")
+    run(goss, ["extract-reads", "-G", clean, "-I", hfa, "-o", ext],
+        "extract-reads")
+    row, r = window_ranks(mixed, rho, clo, False, dev)
+    hits = np.bincount(row[r >= 0], minlength=len(mixed))
+    check(np.array_equal(fasta_ids(ext), np.nonzero(hits)[0]),
+          f"extract-reads of {len(mixed)} reads, half of the genome, half "
+          f"not ({int((mixed == 4).any(1).sum())} with an N): the "
+          f"{int((hits > 0).sum())} reads emitted == a per-read oracle")
+    xfa = os.path.join(tmp, "lt_xreads.fa")
+    write_fasta(xfa, xreads)
+    m, n = (os.path.join(tmp, f"lt_filter_{x}.fa") for x in "mn")
+    run(goss, ["filter-reads", "-G", os.path.join(tmp, "lt_graft"), "-I", xfa,
+               "--match-file", m, "--non-match-file", n], "filter-reads")
+    graft_lo = KmerSet.read(os.path.join(tmp, "lt_graft"), fac).lo
+    row, r = graft_windows(inp, graft_lo, dev)
+    xhits = np.bincount(row[r >= 0], minlength=len(xreads))
+    check(np.array_equal(fasta_ids(m), np.nonzero(xhits)[0])
+          and np.array_equal(fasta_ids(n), np.nonzero(xhits == 0)[0]),
+          f"filter-reads of {LT_READS} xenome reads "
+          f"({int((xreads == 4).any(1).sum())} with an N) against the graft's "
+          f"set: {int((xhits > 0).sum())} matched, the rest not, == a "
+          f"per-read oracle")
+
+    # extract-core-genome of the raw, cleaned and gossple graphs
+    gos = os.path.join(tmp, "gossple")
+    graphs = {raw: (rlo, rcounts), clean: (clo, _cc), gos: read_graph(gos)[::2]}
+    _log, out = run(goss, ["extract-core-genome", "-G", raw, "-G", clean, "-G",
+                           gos], "extract-core-genome", stdout=True)
+    lines = [line.split("\t") for line in out.splitlines()]
+    ok = len(lines) == 3
+    for na, nb, d in lines:
+        (alo, ac), (blo, bc) = graphs[na], graphs[nb]
+        fa, fb = ac / float(ac.sum()), bc / float(bc.sum())
+        r = lookup128(blo, np.zeros_like(blo), alo, np.zeros_like(alo))
+        shared = np.zeros(len(blo), bool)
+        shared[r[r >= 0]] = True
+        d2 = (float(((fa[r >= 0] - fb[r[r >= 0]]) ** 2).sum())
+              + float((fa[r < 0] ** 2).sum()) + float((fb[~shared] ** 2).sum()))
+        ok &= abs(float(d) - d2) <= 1e-5 * d2
+    check(ok, f"extract-core-genome: the three distances == numpy "
+              f"({[round(float(x[2]), 9) for x in lines]})")
+    del graphs
+
+    # fix-reads: reads that equal the genome before and after
+    fix_in, fix_out = (os.path.join(tmp, f"lt_fix_{x}.fa") for x in ("in", "out"))
+    write_fasta(fix_in, head[:LT_FIX])
+    run(goss, ["fix-reads", "-G", clean, "-I", fix_in, "-o", fix_out], "fix-reads")
+    gkeys = window_keys(genome, rho)[0]
+    order = np.argsort(gkeys)
+    gsorted = gkeys[order]
+    lut = np.full(256, 4, np.uint8)
+    lut[np.frombuffer(b"ACGT", np.uint8)] = np.arange(4, dtype=np.uint8)
+
+    def in_genome(seq: bytes) -> bool:
+        """The read equals the genome or its reverse complement somewhere
+        (the genome's 26-mers are distinct: random sequence)."""
+        codes = lut[np.frombuffer(seq, np.uint8)]
+        if len(codes) < rho or (codes == 4).any():
+            return False
+        for s in (codes, 3 - codes[::-1]):
+            key = window_keys(s[:rho], rho)[0][0]
+            at = min(int(np.searchsorted(gsorted, key)), len(gsorted) - 1)
+            p = int(order[at])
+            if gsorted[at] == key and np.array_equal(genome[p : p + len(s)], s):
+                return True
+        return False
+
+    with open(fix_out, "rb") as f:
+        recs = f.read().split(b">")[1:]
+    fixed = [b"".join(r.split(b"\n")[1:]) for r in recs]
+    n_corrected = sum(b" " in r.split(b"\n", 1)[0] for r in recs)
+    before = sum(in_genome(ACGTN[r].tobytes()) for r in head[:LT_FIX])
+    after = sum(in_genome(s) for s in fixed)
+    check(len(fixed) == LT_FIX and after >= before and n_corrected > 0,
+          f"fix-reads of {LT_FIX} reads: {n_corrected} corrected; reads equal "
+          f"to the genome (either strand) {before} before, {after} after")
+    print(f"graphs -k {k} on the host of {smi}: detect-variants {len(sel)} "
+          f"edges, build-subgraph {len(got_sub)} edges, extract-reads "
+          f"{int((hits > 0).sum())} of {len(mixed)}, fix-reads {before} -> "
+          f"{after} of {LT_FIX} reads equal to the genome", flush=True)
+
+
+def supergraph_part(dev, smi: str, tmp: str, run, goss) -> None:
+    """gossple's graph, supergraph and scaffold library: ``build-edge-index``,
+    ``dot-supergraph``, ``clip-links``, ``build-db``; then ``upgrade-graph
+    --format reference`` of a copy of gossple's cleaned graph, read back."""
+    import sqlite3
+
+    from gossamer_tpu_torch.graph.graph import Graph
+    from gossamer_tpu_torch.graph.supergraph import SuperGraph
+    from gossamer_tpu_torch.io.artifacts import read_array
+    from gossamer_tpu_torch.io.factory import PhysicalFileFactory
+
+    fac = PhysicalFileFactory()
+    base = os.path.join(tmp, "gossple")
+    n_edges = len(read_graph(base)[0])
+    sg = SuperGraph.read(base, fac)
+    paths = [p for p in sorted(sg.path_ids()) if not sg.is_gap(p)]
+    run(goss, ["build-edge-index", "-G", base], "build-edge-index")
+    seg = read_array(fac, base + "-edge-index.edge-seg")
+    check(len(seg) == -(-n_edges // 16) and (seg >= 0).mean() > 0.9,
+          f"build-edge-index: {len(seg)} of {n_edges} edge ranks stored "
+          f"(1/16), {100 * (seg >= 0).mean():.2f}% anchored")
+    dot = os.path.join(tmp, "lt_sg.dot")
+    run(goss, ["dot-supergraph", "-G", base, "-o", dot], "dot-supergraph")
+    with open(dot) as f:
+        lines = f.read().splitlines()
+    check(lines[0] == "digraph SG {" and len(lines) == len(paths) + 2
+          and lines[1].endswith(f' [label="{paths[0]}"];'),
+          f"dot-supergraph: one line per superpath that is not a gap "
+          f"({len(paths)})")
+    with open(base + "-scaf.0.links") as f:
+        links = [line for line in f.read().splitlines() if line]
+    run(goss, ["clip-links", "-G", base, "-C", "10"], "clip-links")
+    with open(base + "-scaf.0.links") as f:
+        kept = [line for line in f.read().splitlines() if line]
+    check(kept == [line for line in links if int(line.split("\t")[2]) >= 10],
+          f"clip-links -C 10: {len(kept)} of {len(links)} links kept, those "
+          f"with a count of 10 or more")
+    db = os.path.join(tmp, "lt.db")
+    run(goss, ["build-db", "-G", base, "-o", db], "build-db")
+    con = sqlite3.connect(db)
+    nodes = con.execute("SELECT id, length FROM nodes ORDER BY id").fetchall()
+    seqs = con.execute("SELECT id, sequence FROM sequences ORDER BY id").fetchall()
+    n_links = con.execute("SELECT COUNT(*) FROM links").fetchone()[0]
+    con.close()
+    check([i for i, _l in nodes] == paths
+          and [(i, len(s)) for i, s in seqs] == nodes,
+          f"build-db: one nodes row per superpath that is not a gap "
+          f"({len(nodes)}), a sequence of its length each, {n_links} links")
+
+    ref = os.path.join(tmp, "lt_ref")
+    for suffix in (".header", ".edges-lo", ".counts", "-counts-hist.txt"):
+        shutil.copyfile(base + "_cleaned" + suffix, ref + suffix)
+    want = read_graph(ref)
+    run(goss, ["upgrade-graph", "-G", ref, "--format", "reference"],
+        "upgrade-graph --format reference")
+    with open(ref + ".header", "rb") as f:
+        binary = f.read(1) != b"{"
+    back = Graph.read(ref, fac)
+    check(binary and back.k == RHO - 1 and np.array_equal(back.lo, want[0])
+          and np.array_equal(back.counts.astype(np.int64), want[2]),
+          f"upgrade-graph --format reference of gossple's cleaned graph "
+          f"({len(want[0])} edges, {sum(os.path.getsize(os.path.join(tmp, n)) for n in os.listdir(tmp) if n.startswith('lt_ref-'))} B "
+          f"of reference files): read back equal")
+    print(f"supergraph on the host of {smi}: {len(paths)} superpaths, "
+          f"{len(kept)} links kept", flush=True)
+
+
+def make_transcriptome(rng, n_genes: int = TX_GENES):
+    """Genes of three random exons, 1.5-3 kbp in all, each with the isoform
+    that skips the middle exon -> list of isoform codes."""
+    isoforms = []
+    for _ in range(n_genes):
+        total = int(rng.integers(1500, 3001))
+        mid = int(rng.integers(150, 400))
+        first = int(rng.integers(300, total - mid - 300))
+        exons = [rng.integers(0, 4, n, dtype=np.uint8)
+                 for n in (first, mid, total - mid - first)]
+        isoforms += [np.concatenate(exons), np.concatenate([exons[0], exons[2]])]
+    return isoforms
+
+
+def transcript_pairs(rng, isoforms, coverage=30, read_len=100, insert=300,
+                     sub_rate=0.005):
+    """Pairs of ``read_len`` reads at ``coverage`` from fragments of
+    ``insert`` +- 10% of each isoform -> (lhs, rhs) uint8[n, read_len]."""
+    lhs, rhs = [], []
+    for t in isoforms:
+        n = len(t) * coverage // (2 * read_len)
+        size = np.minimum(rng.integers(int(0.9 * insert), int(1.1 * insert) + 1,
+                                       n), len(t))
+        start = (rng.random(n) * (len(t) - size + 1)).astype(np.int64)
+        win = np.lib.stride_tricks.sliding_window_view(t, read_len)
+        lhs.append(win[start])
+        rhs.append(3 - win[start + size - read_len][:, ::-1])
+    lhs, rhs = np.concatenate(lhs), np.concatenate(rhs)
+    order = rng.permutation(len(lhs))
+    lhs, rhs = lhs[order], rhs[order]
+    for reads in (lhs, rhs):
+        sub = rng.random(reads.shape) < sub_rate
+        reads[sub] = (reads[sub] + rng.integers(1, 4, int(sub.sum()),
+                                                dtype=np.uint8)) % 4
+    return lhs, rhs
+
+
+def translucent_part(dev, smi: str, tmp: str, run,
+                     n_genes: int = TX_GENES) -> tuple[int, int]:
+    """``translucent`` on paired reads of a seeded transcriptome:
+    build-graph (the fold kernel), trim-graph, trim-relative, prune-tips,
+    pop-bubbles, assemble -> (merge_fold launches of build-graph, its peak
+    device memory)."""
+    import torch
+
+    from gossamer_tpu_torch.cli.translucent import main as translucent
+    from gossamer_tpu_torch.ops import fold
+
+    on_card = dev.type == "cuda"
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(9)
+    isoforms = make_transcriptome(rng, n_genes)
+    lhs, rhs = transcript_pairs(rng, isoforms)
+    r1, r2 = (os.path.join(tmp, f"tx_{m}.fastq") for m in (1, 2))
+    write_fastq(r1, lhs, 1)
+    write_fastq(r2, rhs, 2)
+    print(f"translucent inputs: {n_genes} genes, {len(isoforms)} isoforms of "
+          f"{min(map(len, isoforms))}-{max(map(len, isoforms))} bp "
+          f"({sum(map(len, isoforms))} bp in all), {len(lhs)} pairs of "
+          f"{lhs.shape[1]} bp; made in {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    g = os.path.join(tmp, "tx")
+    fold.merge_fold.launches = 0
+    if on_card:
+        torch.cuda.reset_peak_memory_stats(dev)
+    run(translucent, ["build-graph", "-k", str(TX_RHO - 1), "-i", r1, "-i", r2,
+                      "-O", g], "translucent build-graph")
+    launches = fold.merge_fold.launches
+    peak = torch.cuda.max_memory_allocated(dev) if on_card else 0
+    check(launches > 0 or not on_card,
+          f"merge_fold kernel launched {launches} times in translucent "
+          f"build-graph")
+    olo, oc = read_set_spectrum(np.concatenate([lhs, rhs]), TX_RHO, dev)
+    built = read_graph(g)
+    check(np.array_equal(built[0], olo) and np.array_equal(built[2], oc),
+          f"translucent build-graph: {len(olo)} edges == the numpy/torch.unique "
+          f"count of all {2 * len(lhs)} reads")
+    src = g
+    for cmd in ("trim-graph", "trim-relative", "prune-tips", "pop-bubbles"):
+        out = f"{g}_{cmd.split('-')[1]}"
+        run(translucent, [cmd, "-G", src, "-O", out], f"translucent {cmd}")
+        src = out
+    fa = os.path.join(tmp, "tx.fa")
+    run(translucent, ["assemble", "-G", src, "-i", r1, "-i", r2, "-o", fa],
+        "translucent assemble")
+    seqs = [s.decode() for s in contig_stats(fa)[0]]
+    fwd = [ACGTN[t].tobytes().decode() for t in isoforms]
+    rev = [ACGTN[3 - t[::-1]].tobytes().decode() for t in isoforms]
+    truth = np.concatenate([both_strands_keys(t, TX_RHO) for t in isoforms])
+    keys = [window_keys(c, TX_RHO)[0] for c in read_contigs(fa)]
+    share = np.isin(np.concatenate(keys), truth).mean() if keys else 0.0
+    whole = sum(any(t in s or r in s for s in seqs) for t, r in zip(fwd, rev))
+    most = sum(any(len(s) >= 0.9 * len(t) and (s in t or s in r) for s in seqs)
+               for t, r in zip(fwd, rev))
+    check(len(seqs) > 0 and share >= 0.99 and most > 0,
+          f"translucent assemble: {len(seqs)} transcripts, "
+          f"{100 * share:.3f}% of their {TX_RHO}-mers from the isoforms")
+    print(f"translucent on {smi}: {len(isoforms)} isoforms, recovered whole "
+          f"{whole} ({100 * whole / len(isoforms):.1f}%), at 90% of their "
+          f"length or more within one transcript {most} "
+          f"({100 * most / len(isoforms):.1f}%); build-graph {launches} "
+          f"merge_fold launches, peak device memory {peak} B "
+          f"({peak / 2**30:.3f} GiB)", flush=True)
+    return launches, peak
+
+
+def espresso_part(dev, smi: str, tmp: str, inp: dict, head, run) -> None:
+    """``espresso single -k 10`` of LT_READS xenome reads, ``multi -k 10`` of
+    two halves (xenome reads, assembly reads), ``sparse-single`` over the
+    graft's set, ``query`` of LT_QUERY reads, ``similarity``."""
+    from scipy.io import loadmat
+
+    from gossamer_tpu_torch.cli.espresso import main as espresso
+    from gossamer_tpu_torch.graph.kmer_set import KmerSet
+    from gossamer_tpu_torch.io.factory import PhysicalFileFactory
+
+    xreads = inp["reads"][:LT_READS]
+    xfa = os.path.join(tmp, "lt_xreads.fa")
+    half = LT_READS // 2
+    parts = (xreads[:half], head[:half])
+    pfa = [os.path.join(tmp, f"lt_half{i}.fa") for i in range(2)]
+    for path, reads in zip(pfa, parts):
+        write_fasta(path, reads)
+
+    def dense(reads, k=10, split=None):
+        """np.bincount of the reads' normalized k-windows (and of the
+        first ``split`` reads' alone)."""
+        lo, hi, valid = window_keys(reads, k)
+        keys = normalized(lo[valid], hi[valid], k)[0].astype(np.int64)
+        whole = np.bincount(keys, minlength=4 ** k)
+        if split is None:
+            return whole
+        row = np.broadcast_to(np.arange(len(reads))[:, None], lo.shape)[valid]
+        return whole, np.bincount(keys[row < split], minlength=4 ** k)
+
+    single, multi = (os.path.join(tmp, f"lt_{n}.mat") for n in ("single", "multi"))
+    run(espresso, ["single", "-k", "10", "-S", "x", "-I", xfa, "-o", single],
+        "espresso single")
+    run(espresso, ["multi", "-k", "10", "-S", "m", "-I", pfa[0], "-I", pfa[1],
+                   "-o", multi], "espresso multi")
+    rows = [*dense(xreads, split=half), dense(parts[1])]
+    got_single, got_multi = loadmat(single)["x"], loadmat(multi)["m"]
+    check(got_single.shape == (1, 4 ** 10) and np.array_equal(got_single[0], rows[0])
+          and np.array_equal(got_multi, np.stack(rows[1:])),
+          f"espresso single -k 10 of {LT_READS} reads and multi of two "
+          f"halves == np.bincount of the normalized 10-mers "
+          f"({int(rows[0].sum())} windows)")
+    graft = os.path.join(tmp, "lt_graft")
+    sparse = os.path.join(tmp, "lt_sparse.mat")
+    run(espresso, ["sparse-single", "-G", graft, "-S", "s", "-I", xfa, "-o",
+                   sparse], "espresso sparse-single")
+    ks = KmerSet.read(graft, PhysicalFileFactory())
+    row, r = graft_windows(inp, ks.lo, dev)
+    want = np.bincount(r[r >= 0], minlength=ks.count)
+    check(np.array_equal(loadmat(sparse)["s"][0], want),
+          f"espresso sparse-single over the graft's {ks.count} k-mers == "
+          f"numpy ({int(want.sum())} windows in the set)")
+    qfa = os.path.join(tmp, "lt_query.fa")
+    write_fasta(qfa, xreads[:LT_QUERY])
+    _log, out = run(espresso, ["query", "-G", graft, "-I", qfa],
+                    "espresso query", stdout=True)
+    hits = np.bincount(row[(r >= 0) & (row < LT_QUERY)], minlength=LT_QUERY)
+    check(out == "".join(f"r{i:07d}\t{c}\n" for i, c in enumerate(hits.tolist())),
+          f"espresso query of {LT_QUERY} reads "
+          f"({int((xreads[:LT_QUERY] == 4).any(1).sum())} with an N) == a "
+          f"per-read oracle ({int((hits > 0).sum())} reads hit the set)")
+    sim = os.path.join(tmp, "lt_sim.txt")
+    run(espresso, ["similarity", "--matrices", single, "--matrices", multi,
+                   "-o", sim], "espresso similarity")
+    with open(sim) as f:
+        lines = [line.split("\t") for line in f.read().splitlines()]
+    vec = [v.astype(np.float64) for v in rows]
+    ok = len(lines) == 3
+    for (_a, _b, s), (i, j) in zip(lines, ((0, 1), (0, 2), (1, 2))):
+        want_s = vec[i] @ vec[j] / (np.linalg.norm(vec[i]) * np.linalg.norm(vec[j]))
+        ok &= abs(float(s) - want_s) <= 1e-5
+    check(ok, f"espresso similarity of the three rows == numpy's cosine "
+              f"({[x[2] for x in lines]})")
+
+
+def long_tail_phase(dev, smi: str, tmp: str, inp: dict, genome,
+                    head) -> dict:
+    """The rest of the one-device ``goss`` and the ``translucent`` and
+    ``espresso`` tools, on what the earlier phases left in ``tmp`` ->
+    merge_fold launches per path."""
+    from gossamer_tpu_torch.cli.goss import main as goss
+
+    walls, parts = {}, {}
+    run = lt_runner(tmp, dev, walls)
+    launches, peaks = {}, {}
+
+    def part(name, fn, *args):
+        """-> fn(*args); its wall and its commands' walls into ``parts``."""
+        t1, w1 = time.perf_counter(), sum(walls.values())
+        out = fn(*args)
+        parts[name] = (round(time.perf_counter() - t1, 3),
+                       round(sum(walls.values()) - w1, 3))
+        return out
+
+    t0 = time.perf_counter()
+    (launches["build-kmer-set (set algebra)"], peaks["compute-near-kmers"]) = \
+        part("set algebra", set_algebra_part, dev, smi, tmp, inp, run, goss)
+    part("graphs", graphs_part, dev, smi, tmp, inp, genome, head, run, goss)
+    part("supergraph", supergraph_part, dev, smi, tmp, run, goss)
+    (launches["translucent build-graph"], peaks["translucent build-graph"]) = \
+        part("translucent", translucent_part, dev, smi, tmp, run)
+    part("espresso", espresso_part, dev, smi, tmp, inp, head, run)
+    print(f"long tail on {smi}: {time.perf_counter() - t0:.1f} s; by part "
+          f"(wall, of which the commands) {parts}; walls (s) "
+          f"{ {name: round(w, 3) for name, w in walls.items()} }; peak device "
+          f"memory (B) {peaks}", flush=True)
+    return launches
+
+
 def main(argv=None) -> int:
     import torch
 
@@ -2084,6 +2772,7 @@ def main(argv=None) -> int:
         phase("one wide flush", wide_flush_ms, dev, smi, WIDE_RHO)
         phase("assembly -k 25", assembly_phase, dev, smi, tmp, genome, reads,
               RHO)
+        head = reads[:LT_READS].copy()
         del reads
         fold_paths["gossple"] = phase("gossple -k 25", gossple_phase, dev, smi,
                                       tmp)
@@ -2100,6 +2789,8 @@ def main(argv=None) -> int:
         (fold_paths["build-kmer-set (taxonomy)"],
          merge_paths["classify-reads"]) = phase(
             "taxonomy -k 25", taxonomy_phase, dev, smi, tmp, inp)
+        fold_paths.update(phase("long tail", long_tail_phase, dev, smi, tmp,
+                                inp, genome, head))
 
     for name, st, paths in (("merge_fold", fold_stats, fold_paths),
                             ("merge_sorted", merge_stats, merge_paths),

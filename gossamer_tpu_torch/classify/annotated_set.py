@@ -12,7 +12,10 @@ which source(s) each k-mer came from, refined by ``compute-near-kmers``
 :func:`near_kmers_wide` (k <= 62, the two-lane layout of
 :mod:`..ops.engine_wide`) run on the torch device of their tensors;
 :func:`compute_near_kmers_host` is the JAX package's numpy version, kept
-as the reference the device versions are held against.
+as the reference the device versions are held against.  The set algebra
+of ``goss merge-kmer-sets`` / ``intersect-kmer-sets`` /
+``subtract-kmer-set`` (:func:`merge_sets`, :func:`intersect_sets`,
+:func:`subtract_sets`) is host numpy, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -194,3 +197,33 @@ def compute_near_kmers_host(ann: AnnotatedKmerSet, batch: int = 1 << 16) -> int:
     ann.lhs = new_lhs
     ann.rhs = new_rhs
     return gray_total
+
+
+# ---------------------------------------------------------------- set ops
+def _as_sorted_unique(lo, hi):
+    order = np.lexsort((lo, hi))
+    lo, hi = lo[order], hi[order]
+    if len(lo):
+        keep = np.ones(len(lo), dtype=bool)
+        keep[1:] = (lo[1:] != lo[:-1]) | (hi[1:] != hi[:-1])
+        lo, hi = lo[keep], hi[keep]
+    return lo, hi
+
+
+def merge_sets(sets: list[KmerSet]) -> KmerSet:
+    """Union of N sets (``goss merge-kmer-sets``)."""
+    k = sets[0].k
+    lo = np.concatenate([s.lo for s in sets])
+    hi = np.concatenate([s.hi for s in sets])
+    lo, hi = _as_sorted_unique(lo, hi)
+    return KmerSet(k, lo, hi)
+
+
+def intersect_sets(a: KmerSet, b: KmerSet) -> KmerSet:
+    hit, _ = b.access_and_rank(a.lo, a.hi)
+    return KmerSet(a.k, a.lo[hit], a.hi[hit])
+
+
+def subtract_sets(a: KmerSet, b: KmerSet) -> KmerSet:
+    hit, _ = b.access_and_rank(a.lo, a.hi)
+    return KmerSet(a.k, a.lo[~hit], a.hi[~hit])

@@ -25,20 +25,10 @@ import torch
 from ..core import kmer as K
 from ..graph.kmer_set import KmerSet
 from ..io.readers import Read
-from .annotated_set import AnnotatedKmerSet
+from .annotated_set import AnnotatedKmerSet, _as_sorted_unique
 from .xenome import DeviceClassifier
 
 SEP = np.uint8(255)
-
-
-def _as_sorted_unique(lo, hi):
-    order = np.lexsort((lo, hi))
-    lo, hi = lo[order], hi[order]
-    if len(lo):
-        keep = np.ones(len(lo), dtype=bool)
-        keep[1:] = (lo[1:] != lo[:-1]) | (hi[1:] != hi[:-1])
-        lo, hi = lo[keep], hi[keep]
-    return lo, hi
 
 
 class RefMaskSet:

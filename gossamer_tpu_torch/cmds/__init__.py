@@ -6,7 +6,8 @@ from __future__ import annotations
 
 import importlib
 
-MODULES = ("basic", "contigs_cmd", "cleanup", "assembly", "misc", "taxo")
+MODULES = ("basic", "contigs_cmd", "cleanup", "kmer_set_ops", "assembly",
+           "misc", "more", "taxo", "variants")
 
 
 def all_goss_commands():

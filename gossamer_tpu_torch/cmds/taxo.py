@@ -31,6 +31,7 @@ from ..graph.kmer_set import KmerSet
 from ..io.artifacts import read_array, write_array
 from ..io.factory import FileFactory
 from ..utils import profile
+from .more import _read_batches, _windows
 
 
 class Phylogeny:
@@ -149,44 +150,6 @@ def _classify_opts(p):
     add_input_options(p)
 
 
-def _read_batches(reads, batch=4096):
-    buf = []
-    for rd in reads:
-        buf.append(rd)
-        if len(buf) >= batch:
-            yield buf
-            buf = []
-    if buf:
-        yield buf
-
-
-def _windows(codes_list, k):
-    """Flat k-windows of a batch of reads: (lo, hi, valid, read id), the
-    read id taken from the read starts."""
-    if not codes_list:
-        z = np.zeros(0, dtype=np.uint64)
-        return z, z.copy(), np.zeros(0, bool), np.zeros(0, np.int64)
-    lens = np.array([len(c) + 1 for c in codes_list], np.int64)
-    flat = np.full(int(lens.sum()), 255, np.uint8)
-    starts = np.cumsum(lens) - lens
-    for c, s in zip(codes_list, starts):
-        flat[s : s + len(c)] = c
-    n_win = len(flat) - k + 1
-    if n_win <= 0:
-        z = np.zeros(0, dtype=np.uint64)
-        return z, z.copy(), np.zeros(0, bool), np.zeros(0, np.int64)
-    lo = np.zeros(n_win, dtype=np.uint64)
-    hi = np.zeros(n_win, dtype=np.uint64)
-    valid = np.ones(n_win, dtype=bool)
-    for j in range(k):
-        b = flat[j : j + n_win]
-        valid &= b < 4
-        hi = (hi << np.uint64(2)) | (lo >> np.uint64(62))
-        lo = (lo << np.uint64(2)) | (b.astype(np.uint64) & np.uint64(3))
-    rid = np.repeat(np.arange(len(lens), dtype=np.int64), lens)[:n_win]
-    return lo, hi, valid, rid
-
-
 def _classify_run(ctx: Context) -> None:
     ref = KmerSet.read(ctx.opts.graph_in, ctx.fac)
     ph = Phylogeny.read(ctx.opts.graph_in + ".taxo", ctx.fac)
@@ -208,7 +171,7 @@ def _classify_run(ctx: Context) -> None:
             # stays host-side over the matched windows only
             rids, r = join_ranks_device(codes, set_keys, ref.k)
         else:
-            lo, hi, valid, rid = _windows(codes, ref.k)
+            lo, hi, valid, rid, _ = _windows(codes, ref.k)
             nlo, nhi, _f = K.normalize(lo, hi, ref.k)
             hit, r = ref.access_and_rank(nlo, nhi)
             hit &= valid

@@ -1,8 +1,8 @@
 """The de Bruijn graph: sorted edge array + counts.
 
 Host copy of ``gossamer_tpu/graph/graph.py``: ``write`` gives the same
-bytes as the JAX package, ``read`` takes this package's own format (the
-reference's binary format is not read by the port).  Edges are held as
+bytes as the JAX package, ``read`` takes this package's own format and
+the reference's binary one (:mod:`..io.reference_format`).  Edges are held as
 sorted ``uint64`` (lo, hi) planes, the replacement for the reference's
 succinct ``Graph`` (``src/Graph.hh:62-651``); ``rank`` is a vectorized
 binary search and ``select`` a gather, so node degrees are two-sided ranks
@@ -89,7 +89,17 @@ class Graph:
 
     @classmethod
     def read(cls, basename: str, fac: FileFactory) -> "Graph":
-        h = read_header(fac, basename, GRAPH_VERSION)
+        try:
+            h = read_header(fac, basename, GRAPH_VERSION)
+        except (ValueError, UnicodeDecodeError):
+            # not our JSON header: try the reference's binary format
+            # (interop with graphs built by the original gossamer)
+            from ..io.reference_format import (is_reference_graph,
+                                               read_reference_graph)
+
+            if is_reference_graph(fac, basename):
+                return read_reference_graph(fac, basename)
+            raise
         lo = read_array(fac, basename + ".edges-lo")
         if h.get("narrow", 0) or (2 * (h["K"] + 1) <= 64
                                   and not fac.exists(basename + ".edges-hi")):

@@ -7,8 +7,8 @@ with a sorted pair of uint64 planes; ``rank`` is a vectorized
 
 Files: ``<p>.header`` (version/K/count), ``<p>.kmers-lo``, ``<p>.kmers-hi``.
 Text dump format matches ``src/GossCmdDumpKmerSet.cc:43-53``:
-``#<version>\\nK\\tcount\\n<kmer>`` per line.  The reference's own binary
-format is not read by the port.
+``#<version>\\nK\\tcount\\n<kmer>`` per line.  ``read`` also opens a set in
+the reference's own binary format (:mod:`..io.reference_format`).
 """
 
 from __future__ import annotations
@@ -50,10 +50,14 @@ class KmerSet:
     def read(cls, basename: str, fac: FileFactory) -> "KmerSet":
         try:
             h = read_header(fac, basename, KMER_SET_VERSION)
-        except (ValueError, UnicodeDecodeError) as e:
-            raise NotImplementedError(
-                f"{basename}: not a k-mer set of this package (reading the "
-                f"reference's binary format is not ported yet)") from e
+        except (ValueError, UnicodeDecodeError):
+            # reference binary format (interop, src/KmerSet.hh:32-45)
+            from ..io.reference_format import (is_reference_graph,
+                                               read_reference_kmer_set)
+
+            if is_reference_graph(fac, basename):
+                return read_reference_kmer_set(fac, basename)
+            raise
         lo = read_array(fac, basename + ".kmers-lo")
         hi = read_array(fac, basename + ".kmers-hi")
         return cls(h["K"], lo, hi)

@@ -130,7 +130,10 @@ def test_kmer_set_queries_match_jax(fasta):
     assert ks.stat() == jks.stat()
 
 
-def test_reference_binary_format_not_ported(tmp_path):
+def test_a_header_of_neither_format_raises(tmp_path):
+    """Neither this package's header nor the reference's binary one: the
+    header's own error, as in the JAX package (the reference's format is
+    read, ``tests/test_torch_reference_format.py``)."""
     (tmp_path / "x.header").write_bytes(b"\x00\x01binary")
-    with pytest.raises(NotImplementedError, match="not ported"):
+    with pytest.raises(ValueError, match="Expecting value"):
         KmerSet.read(str(tmp_path / "x"), PhysicalFileFactory())

@@ -22,6 +22,7 @@ from gossamer_tpu.cli.goss import build_app as jax_app
 from gossamer_tpu.cmds import taxo as jtaxo
 from gossamer_tpu_torch.classify import device as pdev
 from gossamer_tpu_torch.cli.goss import main as port_main
+from gossamer_tpu_torch.cmds import more as pmore
 from gossamer_tpu_torch.cmds import taxo as ptaxo
 from gossamer_tpu_torch.convert import set_from_u64
 from gossamer_tpu_torch.core import kmer as K
@@ -187,13 +188,18 @@ def test_phylogeny_matches_jax(nodes, want):
 def test_windows_take_read_ids_from_read_starts():
     codes = [np.array([0, 1, 255, 2, 3, 0], np.uint8), np.zeros(0, np.uint8),
              np.array([3, 3, 3], np.uint8)]
-    lo, hi, valid, rid = ptaxo._windows(codes, 2)
+    # the helpers live in cmds/more.py, as in the JAX package; taxo.py
+    # imports them from there
+    assert ptaxo._windows is pmore._windows
+    assert ptaxo._read_batches is pmore._read_batches
+    lo, hi, valid, rid, pos = pmore._windows(codes, 2)
     assert rid.tolist() == [0, 0, 0, 0, 0, 0, 0, 1, 2, 2, 2][: len(lo)]
+    assert pos.tolist() == [0, 1, 2, 3, 4, 5, 6, 0, 0, 1, 2]
     assert valid.tolist() == [True, False, False, True, True, False, False,
                               False, True, True, False]
     assert lo[valid].tolist() == [1, 11, 12, 15, 15] and not hi.any()
-    assert [len(x) for x in ptaxo._windows([], 2)] == [0, 0, 0, 0]
-    assert [len(b) for b in ptaxo._read_batches(range(10), 4)] == [4, 4, 2]
+    assert [len(x) for x in pmore._windows([], 2)] == [0, 0, 0, 0, 0]
+    assert [len(b) for b in pmore._read_batches(range(10), 4)] == [4, 4, 2]
 
 
 # ------------------------------------------------------------------- the CLI
