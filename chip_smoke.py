@@ -113,7 +113,21 @@ read set sized by ``-B 2`` now and with the cap it had before, in turns
     pop-bubbles, assemble on pairs of a seeded 100-gene transcriptome
     (isoforms recovered); ``espresso`` single, multi, sparse-single, query
     (== numpy and per-read oracles) and similarity.
-13. Prints for each kernel its bound (every input byte read once and every
+13. several devices (``parallel/*``) on a mesh of 4 shards, all on the one
+    card (the collectives are copies within it), on what the earlier phases
+    left: the 4-shard count of the whole read set (``count_rho_mers_files(...,
+    mesh=...)``, the fold kernel per shard) == build-graph's files byte for
+    byte; ``sharded_degrees`` of that graph == the host Graph's;
+    ``sharded_trim_mask`` at the inferred cutoff, ``sharded_prune_tips_masks``
+    (4 iterations) and ``pop_bubbles(mesh=)`` == the assembly phase's files;
+    ``ShardedClassifier`` and ``RingClassifier`` of the first 200,000 xenome
+    reads (N included) on the K 25 index == ``classify_codes_device`` (the
+    merge kernel per shard); the wide 4-shard count of the 20k head == its
+    ``build-graph -k 55`` with no kernel launch; ``build-graph --num-devices
+    2`` exits non-zero naming the cards visible when there is one card (and
+    equals the head's graph when there are two); each kernel once more at
+    its per-shard shape.
+14. Prints for each kernel its bound (every input byte read once and every
     output byte written once at the card's memory rate), its time, its
     share of the bound and its launches on each path, then one JSON line
     with both kernels, then ``{"ok": true, ...}``.
@@ -1407,13 +1421,14 @@ def read_contigs(path: str) -> list[np.ndarray]:
             for r in records]
 
 
-def assembly_phase(dev, smi: str, tmp: str, genome, reads, rho: int) -> None:
+def assembly_phase(dev, smi: str, tmp: str, genome, reads, rho: int) -> int:
     """The assembler from graph to contigs, on the graph of the ``build-graph
     -k rho-1`` phase: ``trim-graph`` (cutoff inferred), ``prune-tips --iterate
     4``, ``pop-bubbles``, ``print-contigs --min-length 100``, a ``lint-graph``
     after each stage, and ``dump-graph | restore-graph`` of the last graph;
     then the three cleanup stages again after a trim at 2.
-    Host code on the card's machine, as in the JAX package on one device."""
+    Host code on the card's machine, as in the JAX package on one device.
+    -> the cutoff trim-graph inferred."""
     from gossamer_tpu_torch.cli.goss import main as goss
 
     k = rho - 1
@@ -1462,6 +1477,8 @@ def assembly_phase(dev, smi: str, tmp: str, genome, reads, rho: int) -> None:
             if cmd == "trim-graph":
                 cutoff = (int(trim_opts[1]) if trim_opts else int(
                     logs[cmd].split("inferred cutoff ")[1].split()[0]))
+                if not trim_opts:
+                    inferred.append(cutoff)
                 keep = oc >= cutoff
                 check(cutoff >= 2 and np.array_equal(g[0], olo[keep])
                       and np.array_equal(g[2], oc[keep]),
@@ -1479,7 +1496,7 @@ def assembly_phase(dev, smi: str, tmp: str, genome, reads, rho: int) -> None:
             src, n_in = out, len(g[0])
         return src, g[0], logs
 
-    walls = {}
+    walls, inferred = {}, []
     in_genome = both_strands_keys(genome, rho)
     # the pipeline's own settings: at the inferred cutoff no error survives
     # the trim, so the later stages find little to do
@@ -1557,6 +1574,7 @@ def assembly_phase(dev, smi: str, tmp: str, genome, reads, rho: int) -> None:
           f"{same})")
     print(f"assembly -k {k} on the host of {smi} (no device work): walls (s) "
           f"{ {name: round(w, 3) for name, w in walls.items()} }", flush=True)
+    return inferred[0]
 
 
 # ------------------------------------------------------------ gossple phase
@@ -2703,6 +2721,290 @@ def long_tail_phase(dev, smi: str, tmp: str, inp: dict, genome,
     return launches
 
 
+# ------------------------------------------------- several devices phase
+MESH_SHARDS = 4  # the mesh of the several-devices phase, all on one card
+SD_READS = 200_000  # reads through the sharded classifiers
+GRAPH_SUFFIXES = (".header", ".edges-lo", ".edges-hi", ".counts",
+                  "-counts-hist.txt")
+
+
+def graph_files_equal(a: str, b: str) -> int:
+    """Bytes of graph ``a``'s files when every one equals graph ``b``'s
+    (the same files exist for both), else -1."""
+    n = 0
+    for suffix in GRAPH_SUFFIXES:
+        if os.path.exists(a + suffix) != os.path.exists(b + suffix):
+            return -1
+        if os.path.exists(a + suffix):
+            with open(a + suffix, "rb") as f, open(b + suffix, "rb") as g:
+                if f.read() != g.read():
+                    return -1
+            n += os.path.getsize(a + suffix)
+    return n
+
+
+def shard_fold_stats(dev, smi: str, n_keys: int) -> dict:
+    """merge_fold at the per-shard shape of the 4-shard count: the shard's
+    spectrum at its cap (CAP // 4 lanes) holding ``n_keys`` keys, and the
+    lanes it receives in a flush, 4 buckets of twice the even share, about
+    half of them bucket padding, 3/4 of the rest valid, most keys already in
+    the spectrum.  Kernel == plain, both timed."""
+    import torch
+
+    from gossamer_tpu_torch.ops import fold
+    from gossamer_tpu_torch.ops.fold import SENT
+    from gossamer_tpu_torch.parallel.count_sharded import bucket_size
+
+    cap = CAP // MESH_SHARDS
+    nb = MESH_SHARDS * bucket_size(CHUNK, MESH_SHARDS, 2)
+    g = torch.Generator(device=dev).manual_seed(6)
+    keys = torch.unique(torch.randint(0, 1 << 52, (n_keys,), device=dev,
+                                      generator=g))
+    a = torch.full((cap,), SENT, dtype=torch.int64, device=dev)
+    a[: keys.numel()] = keys
+    ac = torch.zeros(cap, dtype=torch.int64, device=dev)
+    ac[: keys.numel()] = torch.randint(1, 1000, (keys.numel(),), device=dev,
+                                       generator=g)
+    n_valid = nb * 3 // 8
+    old = keys[torch.randint(0, keys.numel(), (n_valid * 4 // 5,), device=dev,
+                             generator=g)]
+    new = torch.randint(0, 1 << 52, (n_valid - old.numel(),), device=dev,
+                        generator=g)
+    b = torch.full((nb,), SENT, dtype=torch.int64, device=dev)
+    b[:n_valid] = torch.sort(torch.cat([old, new])).values
+    bc = (b != SENT).to(torch.int64)
+    got, _want, err = fold_pair(a, ac, b, bc, cap)
+    check(err == 0, f"merge_fold kernel == plain at the per-shard shape: A "
+                    f"{cap} lanes ({keys.numel()} keys), B {nb} lanes, live "
+                    f"{int(got[2])}")
+    kern = [time_ms(lambda: fold.merge_fold(a, ac, b, bc, cap))
+            for _ in range(2)]
+    plain = time_ms(lambda: fold.merge_fold_reference(a, ac, b, bc, cap))
+    st = {"shape": f"per shard of 4: A {cap} lanes ({keys.numel()} keys), B "
+                   f"{nb} lanes, cap {cap}", "max_abs_err": err,
+          "ms": min(kern), "plain_ms": plain, **fold_bound(cap, nb, cap),
+          "library_ms": None}
+    print(f"merge_fold per shard on {smi}: {st['shape']}: kernel "
+          f"{st['ms']:.4f} ms (runs {kern}), plain {plain:.3f} ms, bound "
+          f"{st['bound_ms']:.4f} ms", flush=True)
+    return st
+
+
+def shard_merge_stats(dev, smi: str, set_shard) -> dict:
+    """merge_sorted at each shard's classify join: its slice of the index
+    (A) and one window of 2^20 query lanes, 3/4 valid, sorted (B)."""
+    import torch
+
+    from gossamer_tpu_torch.ops import merge
+    from gossamer_tpu_torch.ops.fold import SENT
+
+    g = torch.Generator(device=dev).manual_seed(7)
+    a = set_shard
+    av = torch.full_like(a, -1)
+    nb = 1 << 20
+    b = torch.full((nb,), SENT, dtype=torch.int64, device=dev)
+    b[: nb * 3 // 4] = torch.sort(torch.randint(
+        0, 1 << 52, (nb * 3 // 4,), device=dev, generator=g)).values
+    bv = torch.arange(nb, dtype=torch.int64, device=dev)
+    _got, err = merge_pair(a, av, b, bv)
+    check(err == 0, f"merge_sorted kernel == plain at a shard's classify "
+                    f"join: A {a.numel()} lanes, B {nb} lanes")
+
+    def library():
+        keys, order = torch.sort(torch.cat([a, b]), stable=True)
+        return keys, torch.cat([av, bv])[order]
+
+    check(all(torch.equal(x, y) for x, y in
+              zip(merge.merge_sorted(a, av, b, bv), library())),
+          "merge_sorted kernel == torch.sort(cat, stable=True) + gather at a "
+          "shard's classify join")
+    kern = [time_ms(lambda: merge.merge_sorted(a, av, b, bv))
+            for _ in range(2)]
+    st = {"shape": f"per shard of 4: A {a.numel()} lanes (a quarter of the "
+                   f"index), B {nb} lanes", "max_abs_err": err,
+          "ms": min(kern),
+          "plain_ms": time_ms(lambda: merge.merge_sorted_reference(a, av, b, bv)),
+          **merge_bound(a.numel(), nb), "library_ms": time_ms(library)}
+    print(f"merge_sorted per shard on {smi}: {st['shape']}: kernel "
+          f"{st['ms']:.4f} ms (runs {kern}), plain {st['plain_ms']:.3f} ms, "
+          f"library sort + gather {st['library_ms']:.3f} ms, bound "
+          f"{st['bound_ms']:.4f} ms", flush=True)
+    return st
+
+
+def several_devices_phase(dev, smi: str, tmp: str, inp: dict, fasta: str,
+                          cutoff: int):
+    """``parallel/*`` on a mesh of 4 shards, all on one card, against what
+    the earlier phases wrote: the 4-shard count of the whole read set ==
+    build-graph's files; the sharded trim, prune-tips walks and pop-bubbles
+    == the assembly phase's files, the sharded degrees == the host Graph's;
+    both sharded classifiers of 200,000 xenome reads (N included) ==
+    ``classify_codes_device``; the wide 4-shard count of the 20k head ==
+    its build-graph -k 55; ``build-graph --num-devices 2`` needs two cards.
+    -> (merge_fold launches per path, merge_sorted launches per path, the
+    kernels' per-shard stats)."""
+    import torch
+
+    from gossamer_tpu_torch.algo.tour_bus import pop_bubbles
+    from gossamer_tpu_torch.classify.annotated_set import AnnotatedKmerSet
+    from gossamer_tpu_torch.classify.device import (classify_codes_device,
+                                                    encode_set)
+    from gossamer_tpu_torch.cli.goss import main as goss
+    from gossamer_tpu_torch.convert import set_from_u64
+    from gossamer_tpu_torch.graph.graph import Graph
+    from gossamer_tpu_torch.io.factory import PhysicalFileFactory
+    from gossamer_tpu_torch.ops import fold, merge
+    from gossamer_tpu_torch.ops.count import count_rho_mers_files
+    from gossamer_tpu_torch.parallel import classify_sharded as CS
+    from gossamer_tpu_torch.parallel.cleanup_sharded import (sharded_degrees,
+                                                             sharded_trim_mask)
+    from gossamer_tpu_torch.parallel.mesh import Mesh
+    from gossamer_tpu_torch.parallel.walk_sharded import sharded_prune_tips_masks
+
+    mesh = Mesh((dev,) * MESH_SHARDS)
+    print(f"several devices: a mesh of {MESH_SHARDS} shards, all on {dev} "
+          f"(one card): the collectives are copies within the card, and no "
+          f"figure of this phase is a scaling across cards", flush=True)
+    fac = PhysicalFileFactory()
+    walls, fold_paths, merge_paths = {}, {}, {}
+
+    def timed(name, fn, *args, **kw):
+        torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        out = fn(*args, **kw)
+        torch.cuda.synchronize(dev)
+        walls[name] = round(time.perf_counter() - t0, 3)
+        return out
+
+    def path(name, count_of, paths, fn, *args, **kw):
+        """Run ``fn`` with every kernel's count at 0 -> its result; the
+        launches of ``count_of`` go to ``paths[name]``."""
+        fold.merge_fold.launches = merge.merge_sorted.launches = 0
+        out = timed(name, fn, *args, **kw)
+        paths[name] = count_of.launches
+        return out
+
+    def write_same(g, name: str, want: str, what: str) -> None:
+        out = os.path.join(tmp, name)
+        timed(f"write {name}", g.write, out, fac)
+        n = graph_files_equal(os.path.join(tmp, want), out)
+        check(n > 0, f"{what}: {g.count} edges, every file == {want}'s "
+                     f"({n} B)")
+
+    # 1. the 4-shard count of the whole read set, as build-graph -k 25 runs it
+    logs = []
+    torch.cuda.reset_peak_memory_stats(dev)
+    name = "sharded count (4 shards on one card)"
+    lo, hi, counts = path(
+        name, fold.merge_fold, fold_paths, count_rho_mers_files, [fasta], RHO,
+        both_strands=True, canonical=False, device=dev, chunk=CHUNK,
+        cap_entries=CAP, threads=4, mesh=mesh,
+        log=lambda _level, msg: logs.append(msg))
+    peak = torch.cuda.max_memory_allocated(dev)
+    n_fold = fold_paths[name]
+    check(n_fold > 0 and n_fold % MESH_SHARDS == 0
+          and merge.merge_sorted.launches == 0,
+          f"merge_fold launched {n_fold} times in the 4-shard count "
+          f"({n_fold // MESH_SHARDS} flushes x {MESH_SHARDS} shards)")
+    inserted = int(counts.sum())
+    n_live = len(lo) // 2 // MESH_SHARDS  # canonical keys a shard, about
+    write_same(Graph(RHO - 1, lo, hi, counts), "mesh_g26", f"g{RHO}",
+               "the 4-shard count of all reads")
+    del lo, hi, counts
+    line = [m for m in logs if m.startswith("count: ") and "phases" in m][0]
+    phases = json.loads(line.split("phases (s) ")[1])
+    print(f"sharded count on {smi}: {inserted} rho-mers, wall "
+          f"{walls[name]:.3f} s -> {inserted / walls[name]:.0f} rho-mers/s; "
+          f"phases (s) {phases} (merge: one torch.sort of the 4 shard spectra "
+          f"on the card); peak device memory {peak / 2**30:.2f} GiB", flush=True)
+    fold_shard = shard_fold_stats(dev, smi, n_live)
+
+    # 2. cleanup on the -k 25 graph, against the assembly phase's files
+    g = Graph.read(os.path.join(tmp, f"g{RHO}"), fac)
+    out_d, in_d = timed("sharded_degrees", sharded_degrees, mesh, g.lo, RHO)
+    t0 = time.perf_counter()
+    want_out, want_in = g.node_degrees(*g.from_node(g.lo, g.hi))
+    check(np.array_equal(out_d, want_out) and np.array_equal(in_d, want_in),
+          f"sharded_degrees of {g.count} edges == the host Graph's (host "
+          f"{time.perf_counter() - t0:.1f} s)")
+    del out_d, in_d, want_out, want_in
+    keep, kept = timed("sharded_trim_mask", sharded_trim_mask, mesh, g.counts,
+                       cutoff)
+    trimmed = g.remove_edges(~keep)
+    check(trimmed.count == kept, f"trim mask keeps the {kept} edges its psum "
+                                 f"counts (cutoff {cutoff})")
+    write_same(trimmed, "mesh_trim", "asm_trim",
+               f"sharded_trim_mask at the inferred cutoff {cutoff}")
+    del g, keep, trimmed
+    t = Graph.read(os.path.join(tmp, "asm_trim"), fac)
+    tip_logs = []
+    dead = timed("sharded_prune_tips_masks", sharded_prune_tips_masks, mesh,
+                 t.lo, t.counts, RHO, iterations=4,
+                 log=lambda _level, msg: tip_logs.append(msg))
+    print("".join(f"  {m}\n" for m in tip_logs), end="", flush=True)
+    write_same(t.remove_edges(dead), "mesh_prune", "asm_prune",
+               "sharded_prune_tips_masks --iterate 4")
+    del t, dead
+    p = Graph.read(os.path.join(tmp, "asm_prune"), fac)
+    popped, n_popped = timed("pop_bubbles(mesh=)", pop_bubbles, p, mesh=mesh)
+    write_same(popped, "mesh_pop", "asm_pop",
+               f"pop_bubbles(mesh=) ({n_popped} bubbles)")
+    del p, popped
+
+    # 3. both sharded classifiers against the one-device engine
+    ann = AnnotatedKmerSet.read(os.path.join(tmp, f"idx{XK}"), fac)
+    set_E = encode_set(ann.kset.lo, ann.lhs, ann.rhs)
+    reads = inp["reads"][:SD_READS]
+    codes = [np.where(r > 3, 255, r).astype(np.uint8) for r in reads]
+    want = classify_codes_device(codes, set_from_u64(set_E, dev), XK)
+    n_with_n = int((reads == 4).any(axis=1).sum())
+    for name, cls in (("sharded classify (4 shards on one card)",
+                       CS.ShardedClassifier),
+                      ("ring classify (4 shards on one card)",
+                       CS.RingClassifier)):
+        clf = cls(mesh, set_E, XK)
+        got = path(name, merge.merge_sorted, merge_paths, clf.classify_codes,
+                   codes)
+        check(merge_paths[name] > 0 and np.array_equal(got, want),
+              f"{name}: {len(codes)} reads ({n_with_n} with an N) == "
+              f"classify_codes_device; merge_sorted launched "
+              f"{merge_paths[name]} times")
+    merge_shard = shard_merge_stats(dev, smi, clf.shards[0])
+    del clf, codes
+
+    # 4. the wide 4-shard count of the head == its build-graph -k 55
+    head_fa = os.path.join(tmp, "head.fa")
+    name = "sharded count -k 55 (4 shards on one card)"
+    wlo, whi, wc = path(
+        name, fold.merge_fold, fold_paths, count_rho_mers_files, [head_fa],
+        WIDE_RHO, both_strands=True, canonical=False, device=dev, chunk=CHUNK,
+        cap_entries=CAP, threads=4, mesh=mesh)
+    check(fold_paths[name] == 0, "merge_fold launches in the wide 4-shard "
+                                 "count: 0 (PyTorch ops, as in the JAX package)")
+    write_same(Graph(WIDE_RHO - 1, wlo, whi, wc), "mesh_h56", f"h{WIDE_RHO}",
+               "the wide 4-shard count of the first 20k reads")
+
+    # 5. the CLI: --num-devices 2 needs two cards
+    n_cards = torch.cuda.device_count()
+    out = os.path.join(tmp, "mesh_h26")
+    args = ["build-graph", "-k", str(RHO - 1), "-I", head_fa, "-O", out,
+            "--num-devices", "2", "--device", "cuda"]
+    if n_cards < 2:
+        err = io.StringIO()
+        with contextlib.redirect_stderr(err):
+            rc = timed("build-graph --num-devices 2", goss, args)
+        check(rc != 0 and f"and {n_cards} are visible" in err.getvalue()
+              and not os.path.exists(out + ".header"),
+              f"build-graph --num-devices 2 with {n_cards} card exits {rc}: "
+              f"{err.getvalue().strip().splitlines()[-1]}")
+    else:
+        check(timed("build-graph --num-devices 2", goss, args) == 0
+              and graph_files_equal(os.path.join(tmp, f"h{RHO}"), out) > 0,
+              f"build-graph --num-devices 2 on {n_cards} cards == h{RHO}")
+    print(f"several devices on {smi}: walls (s) {walls}", flush=True)
+    return fold_paths, merge_paths, fold_shard, merge_shard
+
+
 def main(argv=None) -> int:
     import torch
 
@@ -2770,8 +3072,8 @@ def main(argv=None) -> int:
             "build-graph -k 55 (wide)", graph_phase, dev, smi, tmp, reads,
             fasta, WIDE_RHO)
         phase("one wide flush", wide_flush_ms, dev, smi, WIDE_RHO)
-        phase("assembly -k 25", assembly_phase, dev, smi, tmp, genome, reads,
-              RHO)
+        cutoff = phase("assembly -k 25", assembly_phase, dev, smi, tmp, genome,
+                       reads, RHO)
         head = reads[:LT_READS].copy()
         del reads
         fold_paths["gossple"] = phase("gossple -k 25", gossple_phase, dev, smi,
@@ -2791,11 +3093,21 @@ def main(argv=None) -> int:
             "taxonomy -k 25", taxonomy_phase, dev, smi, tmp, inp)
         fold_paths.update(phase("long tail", long_tail_phase, dev, smi, tmp,
                                 inp, genome, head))
+        sd_fold, sd_merge, fold_shard, merge_shard = phase(
+            "several devices (4 shards on one card)", several_devices_phase,
+            dev, smi, tmp, inp, fasta, cutoff)
+        fold_paths.update(sd_fold)
+        merge_paths.update(sd_merge)
+        fold_shard["paths"] = {n: c for n, c in sd_fold.items() if c}
+        merge_shard["paths"] = dict(sd_merge)
 
     for name, st, paths in (("merge_fold", fold_stats, fold_paths),
                             ("merge_sorted", merge_stats, merge_paths),
                             *(("merge_sorted", st, st.pop("paths"))
-                              for st in merge_more)):
+                              for st in merge_more),
+                            ("merge_fold", fold_shard, fold_shard["paths"]),
+                            ("merge_sorted", merge_shard,
+                             merge_shard["paths"])):
         print(f"{name} on {smi}, {st['shape']}: bound model "
               f"{st['bytes']} B (inputs once + outputs once) -> bound "
               f"{st['bound_ms']:.4f} ms by {st['bound_by']} at "
@@ -2812,12 +3124,14 @@ def main(argv=None) -> int:
          "source": "gossamer_tpu_torch/csrc/fold.cu",
          "replaces": "gossamer_tpu/ops/pallas_fold.py:151",
          "launches": sum(fold_paths.values()),
-         "launches_per_path": fold_paths, **fold_stats},
+         "launches_per_path": fold_paths, **fold_stats,
+         "per_shard": fold_shard},
         {"name": "merge_sorted", "route": "cuda",
          "source": "gossamer_tpu_torch/csrc/merge.cu",
          "replaces": "gossamer_tpu/ops/pallas_merge.py:116",
          "launches": sum(merge_paths.values()),
-         "launches_per_path": merge_paths, **merge_stats}]}), flush=True)
+         "launches_per_path": merge_paths, **merge_stats,
+         "per_shard": merge_shard}]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -1,5 +1,5 @@
 """Graph cleanup: trim-graph and prune-tips (host copy of
-``gossamer_tpu/algo/cleanup.py``, without the mesh argument).
+``gossamer_tpu/algo/cleanup.py``).
 
 Semantics tracked from ``src/GossCmdTrimGraph.cc`` and
 ``src/GossCmdPruneTips.cc:69-344``.  The reference walks each in-degree-0
@@ -34,10 +34,15 @@ def prune_tips_once(
     view,
     cutoff: int | None = None,
     relative_cutoff: float | None = None,
+    start_mask=None,
 ) -> tuple[int, int]:
     """One prune-tips pass over a :class:`..graph.trimmer.TrimView`; zaps
     into its shared bitmap (``GossCmdPruneTips.cc:241-254``).  Returns
-    (tips_removed, edges_zapped)."""
+    (tips_removed, edges_zapped).
+
+    ``start_mask``: a per-edge in-degree-0 candidate mask computed
+    elsewhere (on a mesh); it must describe the current view (no dead edges
+    unaccounted for)."""
     g = view
     n = g.count
     if n == 0 or view.live_count == 0:
@@ -52,7 +57,10 @@ def prune_tips_once(
 
     hfrom = g.from_node(g.lo[heads], g.hi[heads])
     beg_out, beg_in = g.node_degrees(*hfrom)
-    start_ok = (beg_in == 0) & ~view.dead[heads]
+    if start_mask is not None:
+        start_ok = start_mask[heads] & ~view.dead[heads]
+    else:
+        start_ok = (beg_in == 0) & ~view.dead[heads]
     tip_len_ok = seg_len <= 2 * g.k
 
     tto = g.to_node(g.lo[ends], g.hi[ends])
@@ -112,15 +120,28 @@ def prune_tips(
     cutoff: int | None = None,
     relative_cutoff: float | None = None,
     log=None,
+    mesh=None,
 ) -> Graph:
     """Iterated tip pruning with ONE compaction: passes accumulate into
     a shared deletion bitmap (``src/GraphTrimmer.hh:26``; TrimView) and
-    the edge array is rewritten once at the end, not per pass."""
+    the edge array is rewritten once at the end, not per pass.
+
+    With ``mesh``, the first pass's in-degree-0 candidates come from the
+    mesh (:func:`..parallel.cleanup_sharded.sharded_tip_candidates`), exact
+    there because no edge is dead yet; later passes see deletions and use
+    the host view."""
     from ..graph.trimmer import TrimView
 
+    start_mask = None
+    if mesh is not None and g.count:
+        from ..parallel.cleanup_sharded import sharded_tip_candidates
+
+        start_mask = sharded_tip_candidates(mesh, g.lo, g.rho)
     view = TrimView(g)
     for it in range(iterations):
-        tips, zapped = prune_tips_once(view, cutoff, relative_cutoff)
+        tips, zapped = prune_tips_once(
+            view, cutoff, relative_cutoff,
+            start_mask=start_mask if it == 0 else None)
         if log is not None:
             log("info", f"prune-tips pass {it + 1}: removed {tips} tips ({zapped} edges)")
         if tips == 0:

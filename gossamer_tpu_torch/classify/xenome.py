@@ -9,8 +9,12 @@ an annotated union set, 2-bit class per k-mer (``c = lhs<<1 | rhs``,
 non-ACGT base are skipped (``GossCmdGroupReads.cc:381-468``).
 
 Batches of reads go through :class:`DeviceClassifier`, which holds each
-set slice on the torch device once.  :func:`_batch_blrg` is the host
-version, kept as the tests' oracle.
+set slice on the torch device once, or, given a mesh (``n_devices`` above
+1), shards each slice of narrow keys over it
+(:class:`..parallel.classify_sharded.ShardedClassifier`, as
+``gossamer_tpu/classify/xenome.py`` does; wide keys stay on the one
+device).  :func:`_batch_blrg` is the host version, kept as the tests'
+oracle.
 """
 
 from __future__ import annotations
@@ -126,16 +130,25 @@ class DeviceClassifier:
     """The slices of an annotated set, each held on ``device`` once as its
     sorted E tensor (:func:`.device.encode_set`; k <= 30) or, for wider
     keys, as its two E lanes (:func:`.device.encode_set_wide`; k = 31
-    already goes this way, 2k + 2 = 64 bits).  :meth:`blrg` ORs the slices'
+    already goes this way, 2k + 2 = 64 bits).  With a ``mesh`` each slice
+    of narrow keys is a :class:`..parallel.classify_sharded.
+    ShardedClassifier` over it instead.  :meth:`blrg` ORs the slices'
     results."""
 
-    def __init__(self, slices: list[AnnotatedKmerSet], device: torch.device):
+    def __init__(self, slices: list[AnnotatedKmerSet], device: torch.device,
+                 mesh=None):
         from ..convert import set_from_u64, wide_set_from_u64
         from .device import encode_set, encode_set_wide
 
         self.k = k = slices[0].kset.k
         self.wide = 2 * k + 2 > 62
-        if self.wide:
+        self.sharded = mesh is not None and not self.wide
+        if self.sharded:
+            from ..parallel.classify_sharded import ShardedClassifier
+
+            self.sets = [ShardedClassifier(mesh, encode_set(
+                s.kset.lo, s.lhs, s.rhs), k) for s in slices]
+        elif self.wide:
             self.sets = [wide_set_from_u64(*encode_set_wide(
                 s.kset.lo, s.kset.hi, s.lhs, s.rhs, k), device) for s in slices]
         else:
@@ -145,19 +158,39 @@ class DeviceClassifier:
     def blrg(self, codes_list: list[np.ndarray]) -> np.ndarray:
         from .device import classify_codes_device, classify_codes_device_wide
 
-        classify = classify_codes_device_wide if self.wide else classify_codes_device
-        out = classify(codes_list, self.sets[0], self.k)
-        for s in self.sets[1:]:
-            out = out | classify(codes_list, s, self.k)
+        if self.sharded:
+            results = (s.classify_codes(codes_list) for s in self.sets)
+        else:
+            classify = (classify_codes_device_wide if self.wide
+                        else classify_codes_device)
+            results = (classify(codes_list, s, self.k) for s in self.sets)
+        out = next(results)
+        for r in results:
+            out = out | r
         return out
+
+
+def _classifier(ann: AnnotatedKmerSet, passes: int, device, n_devices: int,
+                mesh) -> DeviceClassifier:
+    """``n_devices`` above 1 without a ``mesh`` shards narrow keys over
+    :func:`..parallel.mesh.data_mesh` on ``device``, which raises when the
+    cards are short (wide keys have no sharded form and stay on
+    ``device``, as in the JAX package)."""
+    if mesh is None and n_devices > 1:
+        from ..parallel.mesh import data_mesh
+
+        mesh = data_mesh(n_devices, device)
+    return DeviceClassifier(ann_slices(ann, passes), device, mesh)
 
 
 def classify_reads(
     reads: Iterable[Read], ann: AnnotatedKmerSet, *, device: torch.device,
-    batch_reads: int = 4096, passes: int = 1,
+    batch_reads: int = 4096, passes: int = 1, n_devices: int = 1, mesh=None,
 ) -> Iterator[tuple[Read, int]]:
-    """Yield (read, blrg) preserving input order."""
-    clf = DeviceClassifier(ann_slices(ann, passes), device)
+    """Yield (read, blrg) preserving input order.  ``n_devices`` above 1, or
+    a ``mesh``, shards the set of narrow keys over a mesh: the multipass
+    decomposition run in space instead of time."""
+    clf = _classifier(ann, passes, device, n_devices, mesh)
     buf: list[Read] = []
     for rd in reads:
         buf.append(rd)
@@ -182,9 +215,10 @@ def _flush(buf: list[Read], clf: DeviceClassifier):
 def classify_pairs(
     pairs: Iterable[tuple[Read, Read]], ann: AnnotatedKmerSet, *,
     device: torch.device, batch_reads: int = 4096, passes: int = 1,
+    n_devices: int = 1, mesh=None,
 ) -> Iterator[tuple[Read, Read, int]]:
     """Paired classification: blrg = OR of the mates' blrgs."""
-    clf = DeviceClassifier(ann_slices(ann, passes), device)
+    clf = _classifier(ann, passes, device, n_devices, mesh)
     buf: list[tuple[Read, Read]] = []
     for pr in pairs:
         buf.append(pr)

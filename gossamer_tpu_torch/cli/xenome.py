@@ -87,8 +87,11 @@ def _classify_opts(p):
     p.add_argument("--output-filename-prefix", default="")
     p.add_argument("--dont-write-reads", action="store_true")
     p.add_argument("--num-devices", type=int, default=0,
-                   help="devices to classify on: 0 or 1 (the --device); "
-                        "several devices are not ported yet")
+                   help="shard the index (k <= 30) over a mesh of N shards: "
+                        "N cards for --device cuda, which raises when fewer "
+                        "are visible, N shards on the CPU for --device cpu "
+                        "(0 = auto: every visible card on cuda, one device "
+                        "on cpu)")
     p.add_argument("--preserve-read-order", action="store_true",
                    help="accepted for reference compatibility: this "
                         "engine classifies in streaming batches, so "
@@ -98,11 +101,14 @@ def _classify_opts(p):
 
 
 def _classify_run(ctx: Context) -> None:
+    import torch
+
     o = ctx.opts
-    if int(o.num_devices or 0) > 1:
-        raise CommandError(f"--num-devices {o.num_devices}: several devices "
-                           f"not ported yet")
     ann = AnnotatedKmerSet.read(o.prefix, ctx.fac)
+    n_devices = int(o.num_devices or 0)
+    if n_devices == 0:
+        n_devices = (torch.cuda.device_count() if ctx.device.type == "cuda"
+                     else 1)
     passes = 1
     if o.max_memory:
         idx_bytes = ann.kset.lo.nbytes + ann.kset.hi.nbytes + 2 * ann.kset.count
@@ -129,7 +135,7 @@ def _classify_run(ctx: Context) -> None:
         try:
             for a, b, blrg in classify_pairs(
                 read_pair_files(lhs_files, rhs_files, ctx.fac), ann,
-                device=ctx.device, passes=passes,
+                device=ctx.device, passes=passes, n_devices=n_devices,
             ):
                 counts[blrg] += 1
                 if write:
@@ -149,7 +155,7 @@ def _classify_run(ctx: Context) -> None:
         try:
             for rd, blrg in classify_reads(
                 (r for name, fmt in files for r in read_file(name, ctx.fac, fmt)),
-                ann, device=ctx.device, passes=passes,
+                ann, device=ctx.device, passes=passes, n_devices=n_devices,
             ):
                 counts[blrg] += 1
                 if write:

@@ -1,8 +1,9 @@
 """goss commands: build/dump/restore/lint for graphs and k-mer sets
 (``gossamer_tpu/cmds/basic.py``, ``src/GossApp.cc:101-143``).
 
-Option names and flags follow the reference registration; the JAX
-package's mesh and coordinator options are not ported yet.
+Option names and flags follow the reference registration and the JAX
+package's mesh and coordinator options (``--num-devices``,
+``--coordinator``, ``--num-processes``, ``--process-id``).
 """
 
 from __future__ import annotations
@@ -37,12 +38,30 @@ def _chunk_opts(p):
                         "chunks, the most that leave room for twice their "
                         "windows; where one chunk's flush does not fit, the "
                         "spectrum gets twice a chunk's windows and the peak "
-                        "passes -B")
+                        "passes -B. With --num-devices above 1 the cap is "
+                        "the 48 B a key one for every k, split evenly over "
+                        "the shards, which never spill")
     p.add_argument("--chunk-size", type=int, default=1 << 22,
                    help="device batch size in k-mer windows (a multiple "
                         "of 16)")
     p.add_argument("--spectrum-cap", type=int, default=0,
                    help="override the device-resident distinct-key cap")
+    p.add_argument("--num-devices", type=int, default=0,
+                   help="count on a mesh of N shards (hash-partitioned key "
+                        "space, one all-to-all a flush): N cards for --device "
+                        "cuda, which raises when fewer are visible, N shards "
+                        "on the CPU for --device cpu; 0 = auto: every visible "
+                        "card when there are several, a power of two, k <= 30 "
+                        "and a chunk size divisible by 16, else one device")
+    p.add_argument("--coordinator", default=None,
+                   help="counting over several processes (one per host): "
+                        "host:port of process 0 for torch.distributed "
+                        "(nccl for --device cuda, gloo for cpu); each "
+                        "process reads its round-robin share of the input "
+                        "files (the reference's analog is per-machine builds "
+                        "+ merge-graphs, docs/goss.md:52-55)")
+    p.add_argument("--num-processes", type=int, default=0)
+    p.add_argument("--process-id", type=int, default=0)
 
 
 def wide_sizing(buffer_gb: int, chunk: int) -> tuple[int, int, bool]:
@@ -58,15 +77,36 @@ def wide_sizing(buffer_gb: int, chunk: int) -> tuple[int, int, bool]:
     return 2 * chunk, 1, False
 
 
+def _resolve_num_devices(ctx: Context, rho: int) -> int:
+    """--num-devices: an explicit N is honored (what it cannot run raises
+    later); 0 = auto, which takes every visible card only when there are
+    several and the sharded engine supports the configuration
+    (``gossamer_tpu/cmds/basic.py:52-68``).  On the CPU auto is 1."""
+    import torch
+
+    from ..ops.engine import narrow_keys
+
+    n = int(getattr(ctx.opts, "num_devices", 0) or 0)
+    if n == 0:
+        if ctx.device.type != "cuda":
+            return 1
+        n = torch.cuda.device_count()
+        chunk = int(ctx.opts.chunk_size)
+        if (n & (n - 1)) or not narrow_keys(rho) or rho > 33 or chunk % 16:
+            n = 1
+    return max(1, n)
+
+
 def _chunk_kwargs(ctx: Context, rho: int) -> dict:
     from ..ops.engine import narrow_keys
 
     override = int(getattr(ctx.opts, "spectrum_cap", 0) or 0)
     chunk = int(ctx.opts.chunk_size)
-    if narrow_keys(rho):
+    n_devices = _resolve_num_devices(ctx, rho)
+    if narrow_keys(rho) or n_devices > 1:
         # ~48 B device footprint per distinct key (3 u32 planes + sort
         # workspace in the JAX engine); the same default keeps the two
-        # CLIs' caps equal
+        # CLIs' caps equal, and so the per-shard caps of the sharded count
         cap = override or max((int(ctx.opts.buffer_size) << 30) // 48, 1 << 20)
         batch = FLUSH_CHUNKS[0]
     else:
@@ -78,7 +118,7 @@ def _chunk_kwargs(ctx: Context, rho: int) -> dict:
                                f"device memory; -B does not bound it")
         cap = override or cap
     return {"chunk": chunk, "cap_entries": cap, "batch": batch,
-            "device": ctx.device}
+            "device": ctx.device, "n_devices": n_devices}
 
 
 # ---------------------------------------------------------------- build-graph
@@ -99,6 +139,13 @@ def _counted_spectrum(ctx: Context, rho: int, *, both, canon):
     from ..utils.logging import UnboundedProgressMonitor
 
     files = gather_read_files(ctx)
+    if getattr(ctx.opts, "coordinator", None):
+        from ..parallel import distributed
+
+        files, n_global = distributed.configure(ctx.opts, files, ctx.device,
+                                                log=ctx.log)
+        if n_global and not getattr(ctx.opts, "num_devices", 0):
+            ctx.opts.num_devices = n_global
     kw = _chunk_kwargs(ctx, rho)
     mon = UnboundedProgressMonitor(ctx.log, interval=1 << 26, unit="bases",
                                    label="counting")

@@ -1,5 +1,6 @@
 """Linear-segment decomposition (host copy of
-``gossamer_tpu/graph/segments.py``, without the mesh form).
+``gossamer_tpu/graph/segments.py``; :func:`decompose_mesh` walks the
+chains on a mesh).
 
 The reference walks linear paths edge-by-edge with rank/select per step
 (``src/Graph.tcc:21-46`` ``linearPath``, used by ``printLinearSegments``
@@ -78,6 +79,26 @@ def decompose(g: Graph) -> SegmentDecomposition:
         live = ~cyclic
         order = np.lexsort((pos[live], start[live]))
         order = np.nonzero(live)[0][order]
+    return _csr_tail(start, pos, cyclic, order)
+
+
+def decompose_mesh(g: Graph, mesh) -> SegmentDecomposition:
+    """Chain decomposition with the walks on a mesh: successor and
+    predecessor tables from live-weighted rank queries over the
+    contiguously sharded edges, chains resolved by pointer doubling with
+    one all_gather a round (:mod:`..parallel.walk_sharded`); only the CSR
+    layout (a lexsort) runs on the host.  The same as :func:`decompose`."""
+    n = g.count
+    if n == 0:
+        z = np.zeros(0, dtype=np.int64)
+        return SegmentDecomposition(z, z, z.astype(bool), z, z, z, z)
+    from ..parallel.walk_sharded import sharded_segment_table
+
+    start, pos, _end, _lenE, cyclic = sharded_segment_table(
+        mesh, np.asarray(g.lo), g.rho)
+    live = ~cyclic
+    order = np.lexsort((pos[live], start[live]))
+    order = np.nonzero(live)[0][order]
     return _csr_tail(start, pos, cyclic, order)
 
 

@@ -5,8 +5,9 @@ Counterpart of ``gossamer_tpu/ops/count.py`` on one device.  Narrow keys
 the native reader yields them, and the Python reader's flat code chunks
 are packed with ``io.stream.pack_chunk``.  Wide keys (rho <= 63) go through
 :class:`.engine_wide.SpectrumEngineWide` as raw code chunks from either
-reader (the packed format stops at an overlap of 32 bases).  Several
-devices are not ported yet and raise ``NotImplementedError``.
+reader (the packed format stops at an overlap of 32 bases).
+``n_devices > 1`` (or a ``mesh``) routes through the sharded engines of
+:mod:`..parallel.count_sharded`, as ``gossamer_tpu/ops/count.py`` does.
 """
 
 from __future__ import annotations
@@ -53,12 +54,61 @@ def _expand_symmetric(lo: np.ndarray, c: np.ndarray, rho: int):
     return out_lo, np.zeros_like(out_lo), out_c
 
 
-def _check_supported(rho: int, n_devices: int) -> None:
-    if n_devices != 1:
-        raise NotImplementedError("counting across several devices is not "
-                                  "ported yet")
+def _check_supported(rho: int) -> None:
     if not (narrow_keys(rho) or wide_keys(rho)):
         raise ValueError(f"rho-mers of {rho} bases do not fit 126 bits")
+
+
+def _count_sharded(chunks, rho: int, *, mode: str, expand: bool, device,
+                   chunk: int, cap_entries, progress, log, n_devices: int,
+                   mesh):
+    """The sharded route of :func:`count_chunks` (``gossamer_tpu/ops/
+    count.py:134-180``): its chunk-size checks, the mesh of ``n_devices``
+    shards unless ``mesh`` is given, the engine of the key width."""
+    from ..parallel.count_sharded import (ShardedSpectrumEngine,
+                                          ShardedSpectrumEngineWide)
+    from ..parallel.mesh import data_mesh
+
+    narrow = narrow_keys(rho)
+    if not narrow and chunk <= 0:
+        raise ValueError("--num-devices requires an explicit chunk size")
+    if narrow and (chunk <= 0 or chunk % 16):
+        raise ValueError("--num-devices requires an explicit chunk size "
+                         "divisible by 16 (packed transfer format)")
+    if mesh is None:
+        mesh = data_mesh(n_devices, device)
+    if narrow:
+        eng = ShardedSpectrumEngine(mesh, rho, mode, chunk,
+                                    cap=cap_entries or (1 << 23))
+    else:
+        eng = ShardedSpectrumEngineWide(mesh, rho, mode, chunk,
+                                        cap=cap_entries or (1 << 22))
+    if log is not None:
+        log("info", f"count: {mesh}, per-shard cap {eng.cap_l}")
+    n_chunks = 0
+    t0 = time.perf_counter()
+    for item in chunks:
+        with profile.context("count/add_chunk"):
+            if narrow:
+                eng.add_chunk_packed(np.asarray(item[0]), np.asarray(item[1]))
+            else:
+                codes = np.asarray(item)
+                want = chunk + rho - 1
+                if len(codes) < want:  # pad the tail chunk
+                    codes = np.concatenate(
+                        [codes, np.full(want - len(codes), 255, np.uint8)])
+                eng.add_chunk(codes)
+        n_chunks += 1
+        if progress is not None:
+            progress(n_chunks * chunk)
+    stream = time.perf_counter() - t0
+    with profile.context("count/finish"):
+        out = eng.finish_expanded() if expand else eng.finish()
+    if log is not None:
+        phases = {"stream": stream, **eng.phases}
+        log("info", f"count: {n_chunks} chunks, {eng.spills} spills, "
+                    f"phases (s) {json.dumps(phases)}")
+    return out
 
 
 def count_chunks(
@@ -75,6 +125,7 @@ def count_chunks(
     n_devices: int = 1,
     fold: bool = True,
     batch: int = 8,
+    mesh=None,
 ):
     """Count over chunks of ``chunk`` windows -> sorted (lo, hi, counts)
     host arrays.  Narrow keys take ``(words, inval)`` packed chunks, wide
@@ -88,9 +139,18 @@ def count_chunks(
     ``fold``
     selects the merge-fold kernel or its plain version (narrow engine
     argument; the wide engine has no kernel).  ``batch`` chunks make one
-    flush.
+    flush.  ``n_devices > 1`` counts on a mesh of that many shards
+    (:func:`..parallel.mesh.data_mesh` on ``device``), as does a ``mesh``
+    given; ``batch`` and ``fold`` then do not apply.
     """
-    _check_supported(rho, n_devices)
+    _check_supported(rho)
+    mode = "ref" if canonical else ("value" if both_strands else "plain")
+    if n_devices > 1 or mesh is not None:
+        return _count_sharded(chunks, rho, mode=mode, expand=both_strands,
+                              device=device,
+                              chunk=chunk, cap_entries=cap_entries,
+                              progress=progress, log=log,
+                              n_devices=n_devices, mesh=mesh)
     narrow = narrow_keys(rho)
     if chunk <= 0 or (narrow and chunk % 16):
         raise ValueError(f"need a positive chunk size, for packed chunks "
@@ -99,7 +159,6 @@ def count_chunks(
     if log is not None:
         on_spill = lambda i, n: log(  # noqa: E731
             "info", f"spill {i}: {n:,} distinct keys -> host RAM run")
-    mode = "ref" if canonical else ("value" if both_strands else "plain")
     eng = None
     n_chunks = 0
     t0 = time.perf_counter()
@@ -152,7 +211,7 @@ def count_rho_mers_files(paths: list[str], rho: int, *, chunk: int = 1 << 22,
                              native_packed_chunks)
     from ..io.readers import read_files
 
-    _check_supported(rho, kw.get("n_devices", 1))
+    _check_supported(rho)
     reader = native_packed_chunks if narrow_keys(rho) else native_flat_chunks
     try:
         chunks = reader(paths, rho, chunk=chunk, fmt=fmt, threads=threads)

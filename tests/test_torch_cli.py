@@ -100,13 +100,20 @@ def test_device_cuda_without_cuda_raises(tiny):
 
 
 @pytest.mark.parametrize("kw,msg", [({"n_devices": 2}, "several devices")])
-def test_unported_counting_raises(tiny, kw, msg):
+def test_unported_counting_raises(tiny, kw, msg, monkeypatch):
+    """Counting on several devices is ported: 2 CPU shards give the one
+    device's spectrum; on cuda with one card visible it raises, never a
+    smaller mesh."""
     _tmp, _reads, fa = tiny
-    args = dict(both_strands=False, canonical=False, device=torch.device("cpu"),
-                chunk=1024)
-    args.update(kw)
-    with pytest.raises(NotImplementedError, match=msg):
-        count_rho_mers_files([fa], 12, **args)
+    args = dict(both_strands=False, canonical=False, chunk=1024)
+    cpu = torch.device("cpu")
+    want = count_rho_mers_files([fa], 12, device=cpu, **args)
+    got = count_rho_mers_files([fa], 12, device=cpu, **args, **kw)
+    assert all(np.array_equal(g, w) for g, w in zip(got, want))
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
+    with pytest.raises(RuntimeError, match=f"{msg}: .* and 1 are visible"):
+        count_rho_mers_files([fa], 12, device=torch.device("cuda"), **args,
+                             **kw)
 
 
 def test_wide_keys_raise(tiny):

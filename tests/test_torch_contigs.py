@@ -7,7 +7,7 @@ files equal the JAX CLI's, ``tests/test_torch_cli.py``) and then goes
 through ``trim-graph``, ``prune-tips --iterate 4``, ``pop-bubbles``,
 ``print-contigs`` with every flag, ``dump-graph``, ``restore-graph``,
 ``lint-graph`` and ``graph-to-kmer-set`` in both CLIs, and ``print-contigs``
-of a supergraph.  Also here: the raises of what is not ported, the
+of a supergraph.  Also here: the raises of what cannot run, the
 ``--device`` default of every command, and that no module of the port
 imports JAX or the JAX package.
 """
@@ -230,14 +230,24 @@ def test_print_contigs_with_a_supergraph_raises(built, capsys):
 
 
 @pytest.mark.parametrize("cmd", ["trim-graph", "prune-tips", "pop-bubbles"])
-def test_cleanup_on_several_devices_raises(built, cmd, capsys):
+def test_cleanup_on_several_devices_raises(built, cmd, capsys, monkeypatch):
+    """--num-devices 2 on a machine with one card raises and names the
+    cards visible: never a smaller mesh.  On the CPU 2 shards give the one
+    device's files."""
+    import torch
+
     tmp, g, _k = built
     out = tmp / f"never_{cmd}"
-    assert port_main([cmd, "-G", g, "-O", str(out), "--num-devices", "2",
-                      "--device", "cpu"]) == 1
-    assert "several devices is not ported" in capsys.readouterr().err
+    with monkeypatch.context() as m:
+        m.setattr(torch.cuda, "is_available", lambda: True)
+        m.setattr(torch.cuda, "device_count", lambda: 1)
+        assert port_main([cmd, "-G", g, "-O", str(out), "--num-devices", "2",
+                          "--device", "cuda"]) == 1
+    assert "and 1 are visible" in capsys.readouterr().err
     assert not (tmp / f"never_{cmd}.header").exists()
-    run_port([cmd, "-G", g, "-O", str(out), "--num-devices", "1"])
+    run_port([cmd, "-G", g, "-O", str(tmp / f"one_{cmd}"), "--num-devices", "1"])
+    run_port([cmd, "-G", g, "-O", str(tmp / f"two_{cmd}"), "--num-devices", "2"])
+    assert files(tmp, f"one_{cmd}") == files(tmp, f"two_{cmd}")
 
 
 # ----------------------------------------------------- the port's own rules

@@ -125,13 +125,24 @@ def test_multipass_matches_jax(world):
         assert got == want
 
 
-def test_several_devices_raise(world, capsys):
+def test_several_devices_raise(world, capsys, monkeypatch):
+    """--num-devices 2 on a machine with one card raises and names the
+    cards visible (no smaller mesh, no host fallback); on the CPU 2 shards
+    give the one device's statistics."""
     tmp, _seqs = world
-    rc = port_main(["classify", "-P", str(tmp / "it"), "-i",
-                    str(tmp / "reads.fq"), "--num-devices", "2",
-                    "--dont-write-reads", "--device", "cpu"])
+    args = ["classify", "-P", str(tmp / "it"), "-i", str(tmp / "reads.fq"),
+            "--dont-write-reads"]
+    with monkeypatch.context() as m:
+        m.setattr(torch.cuda, "is_available", lambda: True)
+        m.setattr(torch.cuda, "device_count", lambda: 1)
+        rc = port_main([*args, "--num-devices", "2", "--device", "cuda"])
     assert rc == 1
-    assert "several devices not ported yet" in capsys.readouterr().err
+    assert "and 1 are visible" in capsys.readouterr().err
+    stats = []
+    for n in ("1", "2"):
+        assert port_main([*args, "--num-devices", n, "--device", "cpu"]) == 0
+        stats.append(capsys.readouterr().out)
+    assert stats[0] == stats[1] and stats[0].count("\t") == 4
 
 
 def test_device_cuda_without_cuda_raises(world):
