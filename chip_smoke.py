@@ -33,7 +33,14 @@ read set sized by ``-B 2`` now and with the cap it had before, in turns
    boundaries (groups over several tiles, tiles without a group end,
    lengths one off a tile multiple, runs that start 8 bytes into a
    16-byte piece); input out of order in one run only must give
-   ``live = -1``.
+   ``live = -1``.  The merge's split pass (``merge_splits``) is held
+   against its plain version on every merge case and at every shape; the
+   merge's cases are the tests' (``tests/merge_cases.py``): the runs'
+   edges and the kernel's own (more tiles than the card holds blocks at
+   once, one tile, one to three tiles +- 1 lane, one key over many tiles),
+   and every case again as views that start 8 bytes into a 16-byte
+   piece.  Every path that launches the merge must launch the split pass
+   too.
 4. build-graph: a seeded E. coli-scale read set (4.6 Mbp random genome, 30x
    coverage of 100 bp reads, 0.5% substitutions, a few reads with N) goes
    through the port's CLI, ``build-graph -k 25 --device cuda``.  The graph
@@ -141,6 +148,7 @@ exits non-zero.  Without CUDA it exits 2 before running anything.
 from __future__ import annotations
 
 import contextlib
+import importlib.util
 import io
 import json
 import os
@@ -440,44 +448,92 @@ def merge_pair(a, av, b, bv):
     return got, err
 
 
-def merge_phase(dev, smi: str) -> dict:
+def splits_err(a, b, tile: int) -> int:
+    """Max abs difference of the split pass from its plain version."""
     import torch
 
+    from gossamer_tpu_torch.ops.merge import merge_splits, merge_splits_reference
+
+    got = merge_splits(a, b, tile)
+    want = merge_splits_reference(a, b, tile)
+    torch.cuda.synchronize()
+    return int((got - want).abs().max())
+
+
+def zero_launches() -> None:
+    """Every kernel's launch count to 0, just before a path runs."""
+    from gossamer_tpu_torch.ops import fold, merge
+
+    fold.merge_fold.launches = 0
+    merge.merge_sorted.launches = merge.merge_splits.launches = 0
+
+
+def merge_launches(what: str) -> int:
+    """merge_sorted launches since :func:`zero_launches`; each of them that
+    had lanes to merge launched the split pass once."""
     from gossamer_tpu_torch.ops import merge
+
+    n, splits = merge.merge_sorted.launches, merge.merge_splits.launches
+    check((n > 0) == (splits > 0) and splits <= n,
+          f"{what}: merge_splits launched {splits} times, merge_sorted {n}")
+    return n
+
+
+def merge_kernel_info(dev) -> dict:
+    """The default build's tile and ring, and the blocks an SM holds."""
+    from gossamer_tpu_torch.ops import merge
+
+    lib = merge._kernel_lib()
+    info = {"threads": lib.gossamer_merge_threads(),
+            "items": lib.gossamer_merge_tile() // lib.gossamer_merge_threads(),
+            "lanes": lib.gossamer_merge_tile(),
+            "stages": lib.gossamer_merge_stages(),
+            "smem_bytes": lib.gossamer_merge_smem_bytes(),
+            "split_lanes_a_boundary": lib.gossamer_merge_split_group()}
+    return {"tile": info, "blocks_per_sm": merge.blocks_per_sm(lib, dev)}
+
+
+def merge_edge_cases(dev, tile: int, resident: int) -> dict:
+    """{name: (a_keys, a_vals, b_keys, b_vals)} on the card that the kernel
+    must merge exactly as the plain version does: the cases of the tests'
+    ``tests/merge_cases.py``, the runs' edges (ties, empty and all-sentinel
+    runs, one run below the other, lengths off every tile) and the kernel's
+    own at its ``tile`` with ``resident`` blocks on the card at once (more
+    tiles than that, one tile, one and a few tiles +- 1 lane, one key over
+    many tiles); each also as views that start 8 bytes into a 16-byte piece
+    (``x[1:]``)."""
+    import torch
+
+    spec = importlib.util.spec_from_file_location(
+        "merge_cases", os.path.join(ROOT, "tests", "merge_cases.py"))
+    mc = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mc)
+    cases = {name: tuple(torch.as_tensor(np.asarray(x, np.int64), device=dev)
+                         for x in arrays)
+             for name, *arrays in [*mc.edge_cases(),
+                                   *mc.card_cases(tile, resident)]}
+    for name, args in list(cases.items()):
+        cases[f"{name} (views at an odd lane)"] = tuple(
+            torch.cat([x.new_zeros(1), x])[1:] for x in args)
+    return cases
+
+
+def merge_shapes(dev, per_shard: bool = False) -> dict:
+    """{what: (a_keys, a_vals, b_keys, b_vals)} at the shapes the paths give
+    the merge: the fold's spectrum and batch (on no path), the classify join
+    of the xenome cell, the rank join of classify-reads, and with
+    ``per_shard`` a shard's classify join of the 4-shard mesh (the smoke's
+    several-devices phase times the real shard; scripts/merge_bench.py asks
+    for this one)."""
+    import torch
+
     from gossamer_tpu_torch.ops.fold import SENT
 
-    rng = np.random.default_rng(3)
-
-    def t(x):
-        return torch.as_tensor(np.asarray(x, np.int64), device=dev)
-
-    def run(n, space=1 << 50, sent=0):
-        k = np.concatenate([np.sort(rng.integers(0, space, n)),
-                            np.full(sent, SENT)])
-        return t(k), t(rng.integers(-(1 << 40), 1 << 40, len(k)))
-
-    low = np.arange(5000)
-    cases = {
-        "equal keys carrying distinct values": (*run(7001, 16), *run(9003, 16)),
-        "A of 0 lanes": (*run(0), *run(4099)),
-        "B of 0 lanes": (*run(4099), *run(0)),
-        "both of 0 lanes": (*run(0), *run(0)),
-        "all-sentinel runs": (*run(0, sent=3000), *run(0, sent=2500)),
-        "lengths off every tile, sentinel tails": (*run(2047, sent=3),
-                                                   *run(6143, sent=1)),
-        "A entirely below B": (t(low), t(low + 1), t(low + 10_000), t(low)),
-        "B entirely below A": (t(low + 10_000), t(low), t(low), t(low + 1)),
-    }
-    worst = 0
-    for name, args in cases.items():
-        got, err = merge_pair(*args)
-        check(err == 0, f"merge_sorted kernel == plain, {name} "
-                        f"({got[0].numel()} lanes)")
-        worst = max(worst, err)
-
-    # the path's shape: the spectrum at the default cap holding 22M keys;
-    # a sorted batch of 8 x 2^22 lanes, ~3/4 valid, most keys already in A
     g = torch.Generator(device=dev).manual_seed(4)
+    shapes = {}
+
+    # the spectrum at the default cap holding 22M keys; a sorted batch of
+    # 8 x 2^22 lanes, ~3/4 valid, most keys already in A
     keys = torch.unique(torch.randint(0, 1 << 52, (22_000_000,), device=dev,
                                       generator=g))
     a = torch.full((CAP,), SENT, dtype=torch.int64, device=dev)
@@ -487,15 +543,58 @@ def merge_phase(dev, smi: str) -> dict:
     n_valid = nb * 3 // 4
     old = keys[torch.randint(0, keys.numel(), (n_valid * 4 // 5,), device=dev,
                              generator=g)]
-    new = torch.randint(0, 1 << 52, (n_valid - old.numel(),), device=dev,
+    new = torch.randint(0, 1 << 52, (n_valid - old.numel(), ), device=dev,
                         generator=g)
     b = torch.full((nb,), SENT, dtype=torch.int64, device=dev)
     b[:n_valid] = torch.sort(torch.cat([old, new])).values
     bv = -1 - torch.arange(nb, dtype=torch.int64, device=dev)
-    got, err = merge_pair(a, av, b, bv)
-    check(err == 0, f"merge_sorted kernel == plain at the path's shape: A "
-                    f"{CAP} lanes ({keys.numel()} keys), B {nb} lanes")
-    worst = max(worst, err)
+    shapes["the fold's spectrum and batch"] = (a, av, b, bv)
+
+    def join(n_index, space, nq, n_hits):
+        """A sorted index (payload -1) and a window of nq query lanes, 3/4
+        valid and sorted, n_hits of them drawn from the index."""
+        keys = torch.unique(torch.randint(0, space, (n_index,), device=dev,
+                                          generator=g))
+        qb = torch.full((nq,), SENT, dtype=torch.int64, device=dev)
+        hits = keys[torch.randint(0, keys.numel(), (n_hits,), device=dev,
+                                  generator=g)]
+        rest = torch.randint(0, space, (nq * 3 // 4 - n_hits,), device=dev,
+                             generator=g)
+        qb[: nq * 3 // 4] = torch.sort(torch.cat([hits, rest])).values
+        qbv = torch.randperm(nq, device=dev, generator=g)
+        return keys, torch.full_like(keys, -1), qb, qbv
+
+    # the xenome index of the xenome phase (9,182,371 lanes) and one batch
+    # window of 2^19 query lanes
+    shapes["the classify join"] = join(9_182_371, 1 << 52, 1 << 19, 0)
+    # the k-mer set of the taxonomy phase (18,382,323 lanes) and one batch of
+    # 4096 reads (2^19 query lanes, half of them in the set)
+    shapes["the rank join of classify-reads"] = join(18_382_323, 1 << 50,
+                                                     1 << 19, 1 << 18)
+    if per_shard:  # a quarter of the xenome index, 2^20 query lanes
+        shapes["per shard of 4"] = join(2_295_593, 1 << 52, 1 << 20, 0)
+    return shapes
+
+
+def merge_phase(dev, smi: str) -> dict:
+    import torch
+
+    from gossamer_tpu_torch.ops import merge
+
+    info = merge_kernel_info(dev)
+    tile = info["tile"]["lanes"]
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    resident = info["blocks_per_sm"] * sms
+    print(f"merge_sorted kernel: tile {info['tile']}, {info['blocks_per_sm']} "
+          f"blocks an SM x {sms} SMs", flush=True)
+    worst = 0
+    for name, args in merge_edge_cases(dev, tile, resident).items():
+        got, err = merge_pair(*args)
+        s_err = splits_err(args[0], args[2], tile)
+        check(err == 0 and s_err == 0,
+              f"merge_sorted kernel == plain and merge_splits == plain, "
+              f"{name} ({got[0].numel()} lanes)")
+        worst = max(worst, err, s_err)
 
     def timed(a, av, b, bv, what):
         def run_kernel():
@@ -521,52 +620,29 @@ def merge_phase(dev, smi: str) -> dict:
         library = [time_ms(run_library), time_ms(run_library)]
         ms, plain_ms, library_ms = min(kern), min(plain), min(library)
         print(f"merge_sorted at A={a.numel()} B={b.numel()} lanes ({what}) on "
-              f"{smi}: kernel {ms:.3f} ms (runs {kern}), plain {plain_ms:.3f} "
+              f"{smi}: kernel {ms:.4f} ms (runs {kern}), plain {plain_ms:.3f} "
               f"ms (runs {plain}), library sort + gather {library_ms:.3f} ms "
               f"(runs {library})", flush=True)
         return {"shape": f"A {a.numel()} lanes, B {b.numel()} lanes ({what})",
                 "ms": ms, "plain_ms": plain_ms,
                 **merge_bound(a.numel(), b.numel()), "library_ms": library_ms}
 
-    wide = timed(a, av, b, bv, "the fold's spectrum and batch")
-
-    # the classify join's shape: the xenome index of the xenome phase
-    # (9,182,371 lanes, ids -1) and one batch window of 2^19 query lanes,
-    # 3/4 valid, sorted
-    keys = torch.unique(torch.randint(0, 1 << 52, (9_182_371,), device=dev,
-                                      generator=g))
-    qa, qav = keys, torch.full_like(keys, -1)
-    nq = 1 << 19
-    qb = torch.full((nq,), SENT, dtype=torch.int64, device=dev)
-    qb[: nq * 3 // 4] = torch.sort(torch.randint(
-        0, 1 << 52, (nq * 3 // 4,), device=dev, generator=g)).values
-    qbv = torch.arange(nq, dtype=torch.int64, device=dev)
-    _got, err = merge_pair(qa, qav, qb, qbv)
-    check(err == 0, f"merge_sorted kernel == plain at the classify join's "
-                    f"shape: A {qa.numel()} lanes, B {nq} lanes")
-    worst = max(worst, err)
-    join = timed(qa, qav, qb, qbv, "the classify join")
-
-    # the rank join's shape: the k-mer set of the taxonomy phase (18,382,323
-    # lanes, payload -1) and one batch of 4096 reads (2^19 query lanes, 3/4
-    # valid, sorted, each carrying its window index)
-    keys = torch.unique(torch.randint(0, 1 << 50, (18_382_323,), device=dev,
-                                      generator=g))
-    ra, rav = keys, torch.full_like(keys, -1)
-    rb = torch.full((nq,), SENT, dtype=torch.int64, device=dev)
-    rb[: nq * 3 // 4] = torch.sort(torch.cat([
-        keys[torch.randint(0, keys.numel(), (nq // 2,), device=dev, generator=g)],
-        torch.randint(0, 1 << 50, (nq * 3 // 4 - nq // 2,), device=dev,
-                      generator=g)])).values
-    rbv = torch.randperm(nq, device=dev, generator=g)
-    _got, err = merge_pair(ra, rav, rb, rbv)
-    check(err == 0, f"merge_sorted kernel == plain at the rank join's shape: "
-                    f"A {ra.numel()} lanes, B {nq} lanes")
-    worst = max(worst, err)
-    rank = timed(ra, rav, rb, rbv, "the rank join of classify-reads")
+    stats = {}
+    for what, (a, av, b, bv) in merge_shapes(dev).items():
+        _got, err = merge_pair(a, av, b, bv)
+        s_err = splits_err(a, b, tile)
+        check(err == 0 and s_err == 0,
+              f"merge_sorted kernel == plain and merge_splits == plain at "
+              f"{what}: A {a.numel()} lanes, B {b.numel()} lanes")
+        worst = max(worst, err, s_err)
+        stats[what] = timed(a, av, b, bv, what)
+        del a, av, b, bv
+    wide = stats["the fold's spectrum and batch"]
+    rank = stats["the rank join of classify-reads"]
     wide["paths"] = "none (not on a path)"
     rank["paths"] = "classify-reads (counted in the classify join's line)"
-    return {"max_abs_err": worst, **join}, [wide, rank]
+    return ({"max_abs_err": worst, **info, **stats["the classify join"]},
+            [wide, rank])
 
 
 # ------------------------------------------------------- inputs and oracles
@@ -1107,7 +1183,7 @@ def xenome_phase(dev, smi: str, tmp: str, inp: dict, k: int) -> tuple[int, int]:
     from gossamer_tpu_torch.cli.xenome import main as xenome
     from gossamer_tpu_torch.io.factory import PhysicalFileFactory
     from gossamer_tpu_torch.io.readers import Read
-    from gossamer_tpu_torch.ops import fold, merge
+    from gossamer_tpu_torch.ops import fold
     from gossamer_tpu_torch.utils import profile
 
     wide = 2 * k + 2 > 62
@@ -1115,7 +1191,7 @@ def xenome_phase(dev, smi: str, tmp: str, inp: dict, k: int) -> tuple[int, int]:
     idx = os.path.join(tmp, f"idx{k}")
     log = idx + ".log"
     torch.cuda.reset_peak_memory_stats(dev)
-    fold.merge_fold.launches = merge.merge_sorted.launches = 0
+    zero_launches()
     t0 = time.perf_counter()
     rc = xenome(["index", "-K", str(k), "-G", inp["g_fa"], "-H", inp["h_fa"],
                  "-P", idx, "--device", str(dev), "-l", log])
@@ -1152,7 +1228,7 @@ def xenome_phase(dev, smi: str, tmp: str, inp: dict, k: int) -> tuple[int, int]:
     torch.cuda.reset_peak_memory_stats(dev)
     profile.reset()
     profile.enable()
-    fold.merge_fold.launches = merge.merge_sorted.launches = 0
+    zero_launches()
     stdout = io.StringIO()
     t0 = time.perf_counter()
     with contextlib.redirect_stdout(stdout):
@@ -1160,7 +1236,7 @@ def xenome_phase(dev, smi: str, tmp: str, inp: dict, k: int) -> tuple[int, int]:
                      "--output-filename-prefix", out_prefix,
                      "--device", str(dev), "-l", out_prefix + ".log"])
     classify_wall = time.perf_counter() - t0
-    classify_launches = merge.merge_sorted.launches
+    classify_launches = merge_launches(f"xenome classify -K {k}")
     classify_peak = torch.cuda.max_memory_allocated(dev)
     profile.enable(False)
     phases = profile.totals()
@@ -1221,7 +1297,6 @@ def periodic2_phase(dev, smi: str, tmp: str, inp: dict, k: int,
     from gossamer_tpu_torch.convert import set_from_u64
     from gossamer_tpu_torch.io.factory import PhysicalFileFactory
     from gossamer_tpu_torch.io.stream import pack_chunk
-    from gossamer_tpu_torch.ops import merge
 
     ann = AnnotatedKmerSet.read(os.path.join(tmp, f"idx{k}"),
                                 PhysicalFileFactory())
@@ -1248,7 +1323,7 @@ def periodic2_phase(dev, smi: str, tmp: str, inp: dict, k: int,
         "classify_periodic_stream2": lambda: cd.classify_periodic_stream2(
             chunks(), None, k, window, L, device=dev, prepared=prepared),
     }
-    merge.merge_sorted.launches = 0
+    zero_launches()
     seconds = {name: [] for name in engines}
     out = {}
     for name in (*engines, *reversed(engines)):  # in turns: a, b, b, a
@@ -1257,7 +1332,7 @@ def periodic2_phase(dev, smi: str, tmp: str, inp: dict, k: int,
         out[name] = engines[name]()
         torch.cuda.synchronize()
         seconds[name].append(time.perf_counter() - t0)
-    launches = merge.merge_sorted.launches
+    launches = merge_launches("periodic2")
     a, b = out["classify_codes_device"], out["classify_periodic_stream2"]
     check(np.array_equal(a, b) and len(a) == len(clean),
           f"classify_periodic_stream2 == classify_codes_device on "
@@ -1286,7 +1361,7 @@ def electus_phase(dev, smi: str, tmp: str, inp: dict) -> tuple[int, int]:
     import torch
 
     from gossamer_tpu_torch.cli.electus import main as electus
-    from gossamer_tpu_torch.ops import fold, merge
+    from gossamer_tpu_torch.ops import fold
 
     t0 = time.perf_counter()
     rng = np.random.default_rng(2028)
@@ -1310,7 +1385,7 @@ def electus_phase(dev, smi: str, tmp: str, inp: dict) -> tuple[int, int]:
 
     pfx = os.path.join(tmp, "eidx")
     torch.cuda.reset_peak_memory_stats(dev)
-    fold.merge_fold.launches = merge.merge_sorted.launches = 0
+    zero_launches()
     t0 = time.perf_counter()
     rc = electus(["index", "-K", str(EK), "-P", pfx, "--device", str(dev),
                   "-l", pfx + ".log"] + [x for p in ref_fa for x in ("-I", p)])
@@ -1337,7 +1412,7 @@ def electus_phase(dev, smi: str, tmp: str, inp: dict) -> tuple[int, int]:
     for t in (1, 2):
         m, n = (os.path.join(tmp, f"e{t}{x}") for x in "mn")
         torch.cuda.reset_peak_memory_stats(dev)
-        fold.merge_fold.launches = merge.merge_sorted.launches = 0
+        zero_launches()
         stdout = io.StringIO()
         t0 = time.perf_counter()
         with contextlib.redirect_stdout(stdout):
@@ -1345,7 +1420,7 @@ def electus_phase(dev, smi: str, tmp: str, inp: dict) -> tuple[int, int]:
                           str(t), "--match-prefix", m, "--non-match-prefix", n,
                           "--device", str(dev)])
         wall = time.perf_counter() - t0
-        launches = merge.merge_sorted.launches
+        launches = merge_launches(f"electus classify --ref-threshold {t}")
         peak = torch.cuda.max_memory_allocated(dev)
         check(rc == 0, f"electus classify --ref-threshold {t} exit code 0")
         check(launches > 0, f"merge_sorted kernel launched {launches} times "
@@ -1950,7 +2025,7 @@ def taxonomy_phase(dev, smi: str, tmp: str, inp: dict,
     with open(annots, "w") as f:
         f.write("".join(f"{path}\t{node}\n" for path, node in zip(ref_fa, SPECIES)))
 
-    fold.merge_fold.launches = merge.merge_sorted.launches = 0
+    zero_launches()
     t0 = time.perf_counter()
     rc = goss(["build-kmer-set", "-k", str(k), "-O", ks, *device,
                *[x for p in ref_fa for x in ("-I", p)]])
@@ -1993,13 +2068,13 @@ def taxonomy_phase(dev, smi: str, tmp: str, inp: dict,
     torch.cuda.reset_peak_memory_stats(dev)
     profile.reset()
     profile.enable()
-    fold.merge_fold.launches = merge.merge_sorted.launches = 0
+    zero_launches()
     stdout = io.StringIO()
     t0 = time.perf_counter()
     with contextlib.redirect_stdout(stdout):
         rc = goss(["classify-reads", "-G", ks, "-I", inp["er_fa"], *device])
     wall = time.perf_counter() - t0
-    launches = merge.merge_sorted.launches
+    launches = merge_launches("classify-reads")
     peak = torch.cuda.max_memory_allocated(dev)
     profile.enable(False)
     phases = profile.totals()
@@ -2807,8 +2882,11 @@ def shard_merge_stats(dev, smi: str, set_shard) -> dict:
         0, 1 << 52, (nb * 3 // 4,), device=dev, generator=g)).values
     bv = torch.arange(nb, dtype=torch.int64, device=dev)
     _got, err = merge_pair(a, av, b, bv)
-    check(err == 0, f"merge_sorted kernel == plain at a shard's classify "
-                    f"join: A {a.numel()} lanes, B {nb} lanes")
+    tile = merge._kernel_lib().gossamer_merge_tile()
+    s_err = splits_err(a, b, tile)
+    check(err == 0 and s_err == 0,
+          f"merge_sorted kernel == plain and merge_splits == plain at a "
+          f"shard's classify join: A {a.numel()} lanes, B {nb} lanes")
 
     def library():
         keys, order = torch.sort(torch.cat([a, b]), stable=True)
@@ -2821,7 +2899,7 @@ def shard_merge_stats(dev, smi: str, set_shard) -> dict:
     kern = [time_ms(lambda: merge.merge_sorted(a, av, b, bv))
             for _ in range(2)]
     st = {"shape": f"per shard of 4: A {a.numel()} lanes (a quarter of the "
-                   f"index), B {nb} lanes", "max_abs_err": err,
+                   f"index), B {nb} lanes", "max_abs_err": max(err, s_err),
           "ms": min(kern),
           "plain_ms": time_ms(lambda: merge.merge_sorted_reference(a, av, b, bv)),
           **merge_bound(a.numel(), nb), "library_ms": time_ms(library)}
@@ -2879,9 +2957,10 @@ def several_devices_phase(dev, smi: str, tmp: str, inp: dict, fasta: str,
     def path(name, count_of, paths, fn, *args, **kw):
         """Run ``fn`` with every kernel's count at 0 -> its result; the
         launches of ``count_of`` go to ``paths[name]``."""
-        fold.merge_fold.launches = merge.merge_sorted.launches = 0
+        zero_launches()
         out = timed(name, fn, *args, **kw)
-        paths[name] = count_of.launches
+        paths[name] = (merge_launches(name) if count_of is merge.merge_sorted
+                       else count_of.launches)
         return out
 
     def write_same(g, name: str, want: str, what: str) -> None:

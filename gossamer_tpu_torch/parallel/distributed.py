@@ -27,15 +27,22 @@ import torch
 
 
 def initialize(coordinator: str, num_processes: int, process_id: int,
-               device="cpu") -> None:
+               device="cuda") -> None:
     """``torch.distributed.init_process_group`` at ``tcp://coordinator``
-    (``host:port``; process 0 listens there)."""
+    (``host:port``; process 0 listens there).  ``device`` picks the
+    backend; a ``cuda`` device without a card raises before any group
+    starts (the CPU's gloo group only when asked for)."""
     import torch.distributed as dist
 
     if not coordinator or not num_processes:
         raise ValueError("several processes need a coordinator address and "
                          "their number")
-    backend = "nccl" if torch.device(device).type == "cuda" else "gloo"
+    cuda = torch.device(device).type == "cuda"
+    if cuda and not torch.cuda.is_available():
+        raise RuntimeError(f"distributed.initialize: device {device!r} needs "
+                           "CUDA and torch.cuda.is_available() is false; pass "
+                           "device='cpu' for a gloo group")
+    backend = "nccl" if cuda else "gloo"
     dist.init_process_group(backend, init_method=f"tcp://{coordinator}",
                             world_size=int(num_processes),
                             rank=int(process_id))

@@ -84,6 +84,16 @@ def test_initialize_needs_the_process_count():
         distributed.initialize("127.0.0.1:1", 0, 0)
 
 
+def test_initialize_without_a_device_needs_cuda(monkeypatch):
+    import torch
+    import torch.distributed as dist
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device 'cuda'"):
+        distributed.initialize(f"127.0.0.1:{free_port()}", 2, 0)
+    assert not dist.is_initialized()
+
+
 def test_one_process_without_a_group():
     assert distributed.process_count() == 1 and distributed.process_index() == 0
     mesh = distributed.global_mesh("cpu", n_local=3)

@@ -19,6 +19,7 @@ from gossamer_tpu.ops.pallas_merge import SENT32, TILE, merge_sorted_planes
 from gossamer_tpu_torch.convert import spectrum_from_planes
 from gossamer_tpu_torch.ops.fold import SENT
 from gossamer_tpu_torch.ops.merge import merge_sorted, merge_sorted_reference
+from merge_cases import edge_cases
 
 CPU = torch.device("cpu")
 
@@ -83,29 +84,6 @@ def test_merge_rejects_bad_input():
     a = torch.tensor([1, 2])
     with pytest.raises(ValueError, match="differ in length"):
         merge_sorted(a, a[:1].clone(), a, a)
-
-
-def edge_cases():
-    """(name, a_keys, a_vals, b_keys, b_vals) as int64 numpy arrays."""
-    rng = np.random.default_rng(5)
-
-    def run(n, space=1 << 50, sent=0):
-        k = np.concatenate([np.sort(rng.integers(0, space, n)),
-                            np.full(sent, SENT)]).astype(np.int64)
-        return k, rng.integers(-1 << 40, 1 << 40, len(k))
-
-    low = np.arange(5000, dtype=np.int64)
-    return [
-        ("equal keys, distinct values", *run(7001, 16), *run(9003, 16)),
-        ("A of 0 lanes", *run(0), *run(4099)),
-        ("B of 0 lanes", *run(4099), *run(0)),
-        ("both of 0 lanes", *run(0), *run(0)),
-        ("all-sentinel runs", *run(0, sent=3000), *run(0, sent=2500)),
-        ("sentinel tails", *run(3001, sent=777), *run(2049, sent=1)),
-        ("lengths off every tile", *run(2047), *run(6143)),
-        ("A entirely below B", low, low + 1, low + 10_000, low),
-        ("B entirely below A", low + 10_000, low, low, low + 1),
-    ]
 
 
 @pytest.mark.parametrize("case", edge_cases(), ids=lambda c: c[0])
