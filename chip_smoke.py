@@ -10,12 +10,14 @@ hand-written kernels.
 
     python3 chip_smoke.py
     python3 chip_smoke.py --wide-memory   # what sizes -B for wide keys
+    python3 chip_smoke.py --routes        # build-graph -k 25, engine routes
 
 ``--wide-memory`` runs only this: the peak device memory of one wide
 k-merize and one wide flush at 1, 2, 4 and 8 chunks into resident spectra
 of 2^22, 2^24 and 44,739,242 lanes, then ``build-graph -k 55`` of the
 read set sized by ``-B 2`` now and with the cap it had before, in turns
-(spills, wall, peak device memory).
+(spills, wall, peak device memory).  ``--routes`` runs only the kernels'
+builds, build-graph -k 25 (4.) and the engine routes (4b.).
 
 1. Prints the card's name and power limit (nvidia-smi) and the versions.
 2. Builds the port's native code from this checkout, all compilers started
@@ -47,6 +49,23 @@ read set sized by ``-B 2`` now and with the cap it had before, in turns
    must hold 2 x the valid 26-mer windows counted on the host, be closed
    under reverse complement, equal the same count with the plain fold, and,
    on the first 20k reads, equal a numpy oracle.
+4b. Engine routes, each counted on the card with the fold kernel: raw codes
+   (``build-graph -k 25 --chunk-size 4194303``: not a multiple of 16, so
+   ``native_flat_chunks`` and ``add_chunk``) with files == 4.'s; the packed
+   route through the engine, raw chunks of 2^20 windows with several spills
+   (the whole finish on the card, its peak device memory within 48 B a
+   lane of twice the runs' lanes) and the sparse route
+   (``pack_chunk_sparse`` of the raw chunks) == 4.'s graph; the periodic
+   route (period 101) on the N-free reads == the packed route on the same
+   stream.  Driven directly, as no path of the port calls them:
+   ``batch_steps_fold_packed_scan`` (4 batches a call) == the canonical
+   spectrum, ``expand_step`` of the canonical spectrum at the CLI's cap ==
+   4.'s graph and ``spectra_merge`` of two halves' spectra == the canonical
+   spectrum, each against the plain fold at its shape.  The merge kernel
+   against its plain version and the library at the shapes of the finish
+   on the card (each merge of spilled runs, the expansion).  In 4. the
+   finish must run on the card: the log names the card for each merge and
+   the expansion, and ``merge_sorted`` launches once for each.
 5. Wide build-graph: the same read set, ``build-graph -k 55`` (112-bit
    keys, the wide engine: PyTorch ops, no kernel launch).  The same checks
    with 128-bit keys as two uint64; its peak device memory must stay within
@@ -576,6 +595,46 @@ def merge_shapes(dev, per_shard: bool = False) -> dict:
     return shapes
 
 
+def merge_timed(a, av, b, bv, what: str, smi: str) -> dict:
+    """merge_sorted on (a, av) and (b, bv): the kernel, its plain version
+    and the library's way to the same result, each timed with CUDA events
+    (runs in turns, the least kept), beside the bound."""
+    import torch
+
+    from gossamer_tpu_torch.ops import merge
+
+    def run_kernel():
+        merge.merge_sorted(a, av, b, bv)
+
+    def run_plain():
+        merge.merge_sorted_reference(a, av, b, bv)
+
+    def run_library():
+        """The library's way to the same function: a stable sort of the
+        concatenated keys and a gather of the payloads.  A stable sort
+        keeps A's lanes before B's on equal keys, as the kernel does."""
+        keys, order = torch.sort(torch.cat([a, b]), stable=True)
+        return keys, torch.cat([av, bv])[order]
+
+    got, lib = merge.merge_sorted(a, av, b, bv), run_library()
+    check(all(torch.equal(x, y) for x, y in zip(got, lib)),
+          f"merge_sorted kernel == torch.sort(cat, stable=True) + gather "
+          f"({what})")
+    del got, lib
+    plain = [time_ms(run_plain)]
+    kern = [time_ms(run_kernel), time_ms(run_kernel)]
+    plain.append(time_ms(run_plain))
+    library = [time_ms(run_library), time_ms(run_library)]
+    ms, plain_ms, library_ms = min(kern), min(plain), min(library)
+    print(f"merge_sorted at A={a.numel()} B={b.numel()} lanes ({what}) on "
+          f"{smi}: kernel {ms:.4f} ms (runs {kern}), plain {plain_ms:.3f} "
+          f"ms (runs {plain}), library sort + gather {library_ms:.3f} ms "
+          f"(runs {library})", flush=True)
+    return {"shape": f"A {a.numel()} lanes, B {b.numel()} lanes ({what})",
+            "ms": ms, "plain_ms": plain_ms,
+            **merge_bound(a.numel(), b.numel()), "library_ms": library_ms}
+
+
 def merge_phase(dev, smi: str) -> dict:
     import torch
 
@@ -596,37 +655,6 @@ def merge_phase(dev, smi: str) -> dict:
               f"{name} ({got[0].numel()} lanes)")
         worst = max(worst, err, s_err)
 
-    def timed(a, av, b, bv, what):
-        def run_kernel():
-            merge.merge_sorted(a, av, b, bv)
-
-        def run_plain():
-            merge.merge_sorted_reference(a, av, b, bv)
-
-        def run_library():
-            """The library's way to the same function: a stable sort of the
-            concatenated keys and a gather of the payloads.  A stable sort
-            keeps A's lanes before B's on equal keys, as the kernel does."""
-            keys, order = torch.sort(torch.cat([a, b]), stable=True)
-            return keys, torch.cat([av, bv])[order]
-
-        got, lib = merge.merge_sorted(a, av, b, bv), run_library()
-        check(all(torch.equal(x, y) for x, y in zip(got, lib)),
-              f"merge_sorted kernel == torch.sort(cat, stable=True) + gather "
-              f"({what})")
-        plain = [time_ms(run_plain)]
-        kern = [time_ms(run_kernel), time_ms(run_kernel)]
-        plain.append(time_ms(run_plain))
-        library = [time_ms(run_library), time_ms(run_library)]
-        ms, plain_ms, library_ms = min(kern), min(plain), min(library)
-        print(f"merge_sorted at A={a.numel()} B={b.numel()} lanes ({what}) on "
-              f"{smi}: kernel {ms:.4f} ms (runs {kern}), plain {plain_ms:.3f} "
-              f"ms (runs {plain}), library sort + gather {library_ms:.3f} ms "
-              f"(runs {library})", flush=True)
-        return {"shape": f"A {a.numel()} lanes, B {b.numel()} lanes ({what})",
-                "ms": ms, "plain_ms": plain_ms,
-                **merge_bound(a.numel(), b.numel()), "library_ms": library_ms}
-
     stats = {}
     for what, (a, av, b, bv) in merge_shapes(dev).items():
         _got, err = merge_pair(a, av, b, bv)
@@ -635,7 +663,7 @@ def merge_phase(dev, smi: str) -> dict:
               f"merge_sorted kernel == plain and merge_splits == plain at "
               f"{what}: A {a.numel()} lanes, B {b.numel()} lanes")
         worst = max(worst, err, s_err)
-        stats[what] = timed(a, av, b, bv, what)
+        stats[what] = merge_timed(a, av, b, bv, what, smi)
         del a, av, b, bv
     wide = stats["the fold's spectrum and batch"]
     rank = stats["the rank join of classify-reads"]
@@ -820,10 +848,12 @@ def run_build_graph(fasta: str, out: str, log: str, dev, k: int) -> tuple[float,
         return wall, f.read()
 
 
-def graph_phase(dev, smi: str, tmp: str, reads, fasta: str, rho: int) -> int:
+def graph_phase(dev, smi: str, tmp: str, reads, fasta: str,
+                rho: int) -> tuple[int, int]:
     """``build-graph -k rho-1 --device cuda`` on the read set with its
-    checks; -> merge_fold launches.  rho = 26 is the narrow path (the fold
-    kernel), rho = 56 the wide one (PyTorch ops only)."""
+    checks; -> (merge_fold, merge_sorted) launches.  rho = 26 is the narrow
+    path (the fold kernel in the flushes, the merge kernel in the finish on
+    the card), rho = 56 the wide one (PyTorch ops only)."""
     import torch
 
     from gossamer_tpu_torch.ops import fold
@@ -834,18 +864,29 @@ def graph_phase(dev, smi: str, tmp: str, reads, fasta: str, rho: int) -> int:
     print(f"build-graph -k {rho - 1}: {n_windows} valid {rho}-mer windows",
           flush=True)
     torch.cuda.reset_peak_memory_stats(dev)
-    fold.merge_fold.launches = 0
+    zero_launches()
     base = os.path.join(tmp, f"g{rho}")
     wall, log = run_build_graph(fasta, base, base + ".log", dev, rho - 1)
     launches = fold.merge_fold.launches
+    merges = merge_launches(f"build-graph -k {rho - 1}")
     peak = torch.cuda.max_memory_allocated(dev)
     print(log, end="", flush=True)
+    line = log.split("count: ")[1].splitlines()[0]
+    spills = int(line.split(" chunks, ")[1].split(" spills")[0])
+    phases = json.loads(line.split("phases (s) ")[1])
     if wide:
-        check(launches == 0, f"merge_fold launches: {launches} (the wide "
-                             f"count is PyTorch ops, as in the JAX package)")
+        check(launches == 0 and merges == 0,
+              f"merge_fold launches: {launches}, merge_sorted {merges} (the "
+              f"wide count is PyTorch ops, as in the JAX package)")
     else:
         check(launches > 0, f"merge_fold kernel launched {launches} times in "
                             f"build-graph")
+        finish = line.split("finish: ")[1].split(", phases (s) ")[0]
+        check(merges == spills + 1 and finish.count("merge of") == spills
+              and "expansion of" in finish and "host" not in finish
+              and finish.count(f"on {dev.type}") == spills + 1,
+              f"the finish on the card: merge_sorted launched {merges} times "
+              f"({spills} spilled runs merged, the expansion); {finish}")
     check("\treader: native" in log, "the native reader was used")
     lo, hi, counts = read_graph(base)
     check(bool(hi.any()) == (2 * rho > 64), f"hi plane in use: {2 * rho > 64}")
@@ -854,10 +895,6 @@ def graph_phase(dev, smi: str, tmp: str, reads, fasta: str, rho: int) -> int:
           f"sum of counts {inserted} == 2 x {n_windows} valid windows")
     check(closed_under_rc(lo, hi, counts, rho, dev),
           f"spectrum of {len(lo)} edges closed under reverse complement")
-
-    line = log.split("count: ")[1].splitlines()[0]
-    spills = int(line.split(" chunks, ")[1].split(" spills")[0])
-    phases = json.loads(line.split("phases (s) ")[1])
     count_s = sum(phases.values())
     print(f"build-graph -k {rho - 1} on {smi}: {inserted} rho-mers, "
           f"{len(lo)} distinct, wall {wall:.3f} s, count {count_s:.3f} s "
@@ -893,7 +930,322 @@ def graph_phase(dev, smi: str, tmp: str, reads, fasta: str, rho: int) -> int:
     check(np.array_equal(hlo, olo) and np.array_equal(hhi, ohi)
           and np.array_equal(hc, oc),
           f"first 20k reads: {len(hlo)} edges == numpy oracle")
-    return launches
+    return launches, merges
+
+
+# ------------------------------------------------------------ engine routes
+RAW_CHUNK = CHUNK - 1  # 4,194,303 windows: not a multiple of 16, raw codes
+SPILL_CHUNK = 1 << 20  # the several-spills engine: the cap grows from 2^21
+SPILL_CAP = 1 << 28  # wide enough that the finish runs on the card
+
+
+def fold_timed(a, ac, b, bc, cap: int, what: str, smi: str) -> dict:
+    """merge_fold on the spectra (a, ac) and (b, bc): the kernel == its
+    plain version, both timed with CUDA events (runs in turns, the least
+    kept), beside the bound.  No PyTorch call computes it."""
+    from gossamer_tpu_torch.ops import fold
+
+    got, _want, err = fold_pair(a, ac, b, bc, cap)
+    check(err == 0, f"merge_fold kernel == plain at {what}: A {a.numel()} "
+                    f"lanes, B {b.numel()} lanes, cap {cap}, live "
+                    f"{int(got[2])}")
+    del got, _want
+    plain = [time_ms(lambda: fold.merge_fold_reference(a, ac, b, bc, cap))]
+    kern = [time_ms(lambda: fold.merge_fold(a, ac, b, bc, cap))
+            for _ in range(2)]
+    plain.append(time_ms(lambda: fold.merge_fold_reference(a, ac, b, bc, cap)))
+    ms, plain_ms = min(kern), min(plain)
+    print(f"merge_fold at A={a.numel()} B={b.numel()} lanes, cap {cap} "
+          f"({what}) on {smi}: kernel {ms:.4f} ms (runs {kern}), plain "
+          f"{plain_ms:.3f} ms (runs {plain})", flush=True)
+    return {"shape": f"A {a.numel()} lanes, B {b.numel()} lanes, cap {cap} "
+                     f"({what})", "max_abs_err": err, "ms": ms,
+            "plain_ms": plain_ms, **fold_bound(a.numel(), b.numel(), cap),
+            "library_ms": None}
+
+
+def routes_phase(dev, smi: str, tmp: str, reads, fasta: str, rho: int):
+    """The narrow engine's other routes on the ``-k 25`` read set, each
+    counted on the card: ``build-graph --chunk-size 4194303`` (raw codes
+    through ``native_flat_chunks``) == the k-25 cell's files; the packed
+    route through the engine (the merge kernel's inputs in the finish kept),
+    raw chunks of 2^20 with several spills (the finish's peak device memory
+    read) and the sparse route (``pack_chunk_sparse`` of the raw chunks) ==
+    its graph; the periodic route (period 101) on the N-free reads == the
+    packed route on the same stream; driven directly:
+    ``batch_steps_fold_packed_scan`` == the canonical spectrum,
+    ``expand_step`` of the canonical spectrum at the CLI's cap == the graph,
+    ``spectra_merge`` of two halves' spectra == the canonical spectrum.
+    -> (merge_fold launches per path, merge_sorted launches per path, the
+    merge_fold rows at the expand_step and spectra_merge shapes, the
+    merge_sorted rows at the finish's merge and expansion)."""
+    import torch
+
+    from gossamer_tpu_torch.cli.goss import main as goss
+    from gossamer_tpu_torch.io.native import (native_flat_chunks,
+                                              native_packed_chunks)
+    from gossamer_tpu_torch.io.stream import pack_chunk, pack_chunk_sparse
+    from gossamer_tpu_torch.ops import engine as E
+    from gossamer_tpu_torch.ops import fold
+    from gossamer_tpu_torch.ops.canon import rc
+    from gossamer_tpu_torch.ops.fold import SENT
+
+    g26 = os.path.join(tmp, f"g{rho}")
+    want = read_graph(g26)
+    fold_paths, merge_paths, direct = {}, {}, {}
+
+    def path(name, fn, *args, on_path=True, **kw):
+        """Run one path with the launch counts at 0; it must fold with the
+        kernel.  A function that no path of the port calls (``on_path``
+        False) is driven directly: its launches stay out of the paths'."""
+        zero_launches()
+        t0 = time.perf_counter()
+        out = fn(*args, **kw)
+        torch.cuda.synchronize(dev)
+        wall = time.perf_counter() - t0
+        n_fold, n_merge = fold.merge_fold.launches, merge_launches(name)
+        if on_path:
+            fold_paths[name], merge_paths[name] = n_fold, n_merge
+        else:
+            direct[name] = n_fold
+        check(n_fold > 0, f"{name}: {wall:.3f} s, merge_fold launched "
+                          f"{n_fold} times, merge_sorted {n_merge}")
+        return out
+
+    finish_log = []
+
+    def count(add, chunks, expanded=True, **kw):
+        eng = E.SpectrumEngine(rho, "value", CHUNK, dev, batch=BATCH, cap=CAP,
+                               **kw)
+        for item in chunks:
+            getattr(eng, add)(*item)
+        out = eng.finish_expanded() if expanded else eng.finish()
+        finish_log[:] = eng.finish_log
+        print(f"  {add}: {eng.spills} spills, {eng._nflush} flushes; finish: "
+              f"{'; '.join(eng.finish_log)}; phases {eng.phases}", flush=True)
+        return out
+
+    def same_graph(got, what):
+        check(all(np.array_equal(g, w) for g, w in zip(got, want)),
+              f"{what}: {len(got[0])} edges == the k-25 cell's graph")
+
+    # raw codes through the CLI: the chunk size is not a multiple of 16
+    base = os.path.join(tmp, "graw")
+    rc_code = path("build-graph --chunk-size 4194303 (raw codes)", goss, [
+        "build-graph", "-k", str(rho - 1), "-I", fasta, "-O", base,
+        "--chunk-size", str(RAW_CHUNK), "--device", str(dev), "-l",
+        base + ".log"])
+    with open(base + ".log") as f:
+        log = f.read()
+    line = log.split("count: ")[1].splitlines()[0]
+    print(f"  {line}", flush=True)
+    check(rc_code == 0 and "\treader: native" in log
+          and graph_files_equal(base, g26) > 0,
+          f"build-graph --chunk-size {RAW_CHUNK} (native raw chunks, "
+          f"add_chunk): files == the k-25 cell's")
+
+    # the packed route, keeping the merge kernel's inputs in the finish
+    packed = list(native_packed_chunks([fasta], rho, chunk=CHUNK, threads=4))
+    finish_inputs = []  # (the merge's inputs, its launches of merge_sorted)
+    real = E.merge_sorted
+
+    def keep(*args):
+        n0 = real.launches
+        out = real(*args)
+        finish_inputs.append((args, real.launches - n0))
+        return out
+
+    E.merge_sorted = keep
+    try:
+        got = path("engine, packed chunks", count, "add_chunk_packed", packed)
+    finally:
+        E.merge_sorted = real
+    same_graph(got, "packed route")
+    del got
+    on_card = [step.split(" keys")[0] for step in finish_log
+               if step.endswith(f"on {dev}")]
+    check(len(on_card) == len(finish_log) == len(finish_inputs)
+          and on_card[-1].startswith("expansion")
+          and all(n == 1 for _args, n in finish_inputs),
+          f"the packed route's finish ran on the card, one merge_sorted a "
+          f"step: {'; '.join(finish_log)}")
+
+    # several spills (raw chunks of 2^20 windows, one a flush, the cap
+    # wide): the whole finish on the card, its peak device memory
+    def spilled():
+        """-> the graph; the device bytes are the engine's own: the peak
+        over what was allocated before the engine started."""
+        runs = []
+        torch.cuda.synchronize(dev)
+        before = torch.cuda.memory_allocated(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        eng = E.SpectrumEngine(rho, "value", SPILL_CHUNK, dev, batch=1,
+                               cap=SPILL_CAP,
+                               on_spill=lambda i, n: runs.append(n))
+        for c in native_flat_chunks([fasta], rho, chunk=SPILL_CHUNK,
+                                    threads=4):
+            eng.add_chunk(c)
+        eng._flush(final=True)
+        lanes = sum(runs) + (int(eng.live_scalars[-1]) if eng.live_scalars
+                             else 0)
+        torch.cuda.synchronize(dev)
+        count_peak = torch.cuda.max_memory_allocated(dev) - before
+        start = torch.cuda.memory_allocated(dev) - before
+        torch.cuda.reset_peak_memory_stats(dev)
+        out = eng.finish_expanded()
+        peak = torch.cuda.max_memory_allocated(dev) - before
+        print(f"  {len(runs)} spills of {runs} keys, device cap {eng.cap}; "
+              f"finish: {'; '.join(eng.finish_log)}; phases {eng.phases}",
+              flush=True)
+        check(len(runs) >= 3 and all(step.endswith(f"on {dev}")
+                                     for step in eng.finish_log)
+              and peak <= 48 * 2 * lanes,
+              f"finish of {len(runs)} spilled runs and the spectrum "
+              f"({lanes} lanes) on the card, on {smi}: peak device memory "
+              f"{peak} B in the finish alone ({peak / (2 * lanes):.1f} B a "
+              f"lane of twice the lanes, within 48; the finish started with "
+              f"{start} B), {count_peak} B in the count before it")
+        return out
+
+    same_graph(path("engine, raw chunks of 2^20 (several spills)", spilled),
+               "several spills")
+
+    # sparse invalid positions, from the native raw chunks
+    t0 = time.perf_counter()
+    sparse = [pack_chunk_sparse(c, rho, CHUNK)
+              for c in native_flat_chunks([fasta], rho, chunk=CHUNK,
+                                          threads=4)]
+    check(all(sp is not None for sp in sparse),
+          f"pack_chunk_sparse of {len(sparse)} chunks (at most {CHUNK // 64} "
+          f"invalid codes each) in {time.perf_counter() - t0:.1f} s")
+    same_graph(path("engine, sparse chunks", count, "add_chunk_packed_sparse",
+                    sparse), "sparse route")
+    del sparse
+
+    # the canonical spectrum of the graph
+    keys = torch.from_numpy(want[0].view(np.int64)).to(dev)
+    counts = torch.from_numpy(want[2]).to(dev)
+    r = rc(keys, rho)
+    canon = keys <= r
+    ck = keys[canon]
+    cc = torch.where(keys[canon] == r[canon], counts[canon] // 2,
+                     counts[canon])
+    del r, canon
+
+    # grouped folds: batch_steps_fold_packed_scan, 4 batches a call, the
+    # last group filled with chunks of separators
+    def grouped():
+        F = 4
+        blank = pack_chunk(np.full(CHUNK + rho - 1, 255, np.uint8), rho,
+                           CHUNK)
+        items = packed + [blank] * (-len(packed) % (F * BATCH))
+        s_keys, s_counts = E.empty_spec(CAP, dev)
+        for g in range(0, len(items), F * BATCH):
+            grp = items[g : g + F * BATCH]
+            words = torch.from_numpy(np.stack([w for w, _ in grp])
+                                     .view(np.int32)).to(dev)
+            inval = torch.from_numpy(np.stack([v for _, v in grp])).to(dev)
+            s_keys, s_counts, live = E.batch_steps_fold_packed_scan(
+                words.view(F, BATCH, -1), inval.view(F, BATCH, -1), s_keys,
+                s_counts, rho, "value", CAP, CHUNK)
+        return s_keys, s_counts, int(live)
+
+    g_keys, g_counts, n = path("batch_steps_fold_packed_scan, 4 batches a "
+                               "call", grouped, on_path=False)
+    check(n == ck.numel() and torch.equal(g_keys[:n], ck)
+          and torch.equal(g_counts[:n], cc),
+          f"batch_steps_fold_packed_scan: {n} classes == the canonical "
+          f"spectrum of the graph")
+    del g_keys, g_counts
+
+    # periodic: the N-free reads back to back, a separator after each
+    clean = reads[~(reads == 4).any(axis=1)]
+    period = clean.shape[1] + 1
+    flat = np.full((len(clean), period), 255, np.uint8)
+    flat[:, :-1] = clean
+    flat = flat.reshape(-1)
+    data_len = len(flat)
+    n_chunks = -(-data_len // CHUNK)
+    stream = np.full(n_chunks * CHUNK + rho - 1, 255, np.uint8)
+    stream[: len(flat)] = flat
+    del flat
+    periodic, bitmap = [], []
+    for i in range(n_chunks):
+        p0 = i * CHUNK
+        words, inval = pack_chunk(stream[p0 : p0 + CHUNK + rho - 1], rho,
+                                  CHUNK)
+        nwin = max(0, min(CHUNK, data_len - rho + 1 - p0))
+        periodic.append((words, p0 % period, CHUNK + rho, nwin))
+        bitmap.append((words, inval))
+    del stream
+    got = path("engine, periodic chunks (period 101)", count,
+               "add_chunk_packed_periodic", periodic, expanded=False,
+               period=period)
+    ref = path("engine, packed chunks of the N-free reads", count,
+               "add_chunk_packed", bitmap, expanded=False)
+    n_windows = valid_windows(clean, rho)
+    check(all(np.array_equal(g, w) for g, w in zip(got, ref))
+          and int(got[2].sum()) == n_windows,
+          f"periodic route on {len(clean)} N-free reads: {len(got[0])} "
+          f"classes, {n_windows} windows == the packed route")
+    del periodic, bitmap, got, ref
+
+    # expand_step and spectra_merge (no path of the port calls them) on
+    # the canonical spectrum of the graph
+    def spectrum(k, c):
+        s = torch.full((CAP,), SENT, dtype=torch.int64, device=dev)
+        sc = torch.zeros(CAP, dtype=torch.int64, device=dev)
+        s[: k.numel()] = k
+        sc[: k.numel()] = c
+        return s, sc
+
+    a, ac = spectrum(ck, cc)
+    out_k, out_c, live = path("expand_step", E.expand_step, a, ac, rho,
+                              on_path=False)
+    n = keys.numel()
+    check(int(live) == n and torch.equal(out_k[:n], keys)
+          and torch.equal(out_c[:n], counts),
+          f"expand_step of {ck.numel()} classes in {CAP} lanes: {n} edges "
+          f"== the graph")
+    del out_k, out_c
+    b = torch.where(a == SENT, SENT, rc(a, rho))
+    b, order = torch.sort(b)
+    fold_rows = [fold_timed(a, ac, b, ac[order], 2 * CAP,
+                            "expand_step of the k-25 spectrum", smi)]
+    fold_rows[-1]["paths"] = (f"none: driven directly, "
+                              f"{direct['expand_step']} launch")
+    del a, ac, b, order
+
+    half = len(packed) // 2
+    sa = spectrum(*(torch.from_numpy(x.view(np.int64)).to(dev) for x in
+                    count("add_chunk_packed", packed[:half], False)[::2]))
+    sb = spectrum(*(torch.from_numpy(x.view(np.int64)).to(dev) for x in
+                    count("add_chunk_packed", packed[half:], False)[::2]))
+    del packed
+    out_k, out_c, live = path("spectra_merge", E.spectra_merge, *sa, *sb, CAP,
+                              on_path=False)
+    n = ck.numel()
+    check(int(live) == n and torch.equal(out_k[:n], ck)
+          and torch.equal(out_c[:n], cc),
+          f"spectra_merge of the two halves' spectra: {n} classes == the "
+          f"canonical spectrum of the graph")
+    del out_k, out_c, keys, counts, ck, cc
+    fold_rows.append(fold_timed(*sa, *sb, CAP, "spectra_merge of two halves' "
+                                "spectra", smi))
+    fold_rows[-1]["paths"] = (f"none: driven directly, "
+                              f"{direct['spectra_merge']} launch")
+    del sa, sb
+
+    # the merge kernel at the finish's shapes in the packed route
+    merge_rows = []
+    for step, (args, n) in zip(on_card, finish_inputs):
+        what = f"the finish's {step} keys"
+        _got, err = merge_pair(*args)
+        check(err == 0, f"merge_sorted kernel == plain at {what}")
+        merge_rows.append({**merge_timed(*args, what, smi), "max_abs_err": err,
+                           "paths": {"engine, packed chunks": n}})
+    print(f"  driven directly, merge_fold launches: {direct}", flush=True)
+    return fold_paths, merge_paths, fold_rows, merge_rows
 
 
 def wide_flush_ms(dev, smi: str, rho: int) -> None:
@@ -3133,7 +3485,19 @@ def main(argv=None) -> int:
             phase("build-graph -k 55 sized now and before",
                   wide_cap_before_after, dev, smi, tmp, fasta, WIDE_RHO)
         return 0
-    check(not argv, f"no arguments, or --wide-memory alone (got {argv})")
+    if argv == ["--routes"]:
+        with tempfile.TemporaryDirectory() as tmp:
+            fasta = os.path.join(tmp, "reads.fa")
+            reads = make_reads(np.random.default_rng(2026))[1]
+            write_fasta(fasta, reads)
+            print(phase("build-graph -k 25", graph_phase, dev, smi, tmp, reads,
+                        fasta, RHO), flush=True)
+            for out in phase("engine routes -k 25", routes_phase, dev, smi,
+                             tmp, reads, fasta, RHO):
+                print(json.dumps(out), flush=True)
+        return 0
+    check(not argv, f"no arguments, --wide-memory or --routes alone (got "
+                    f"{argv})")
     fold_stats = phase("merge_fold kernel", fold_phase, dev, smi)
     merge_stats, merge_more = phase("merge_sorted kernel", merge_phase, dev, smi)
     fold_paths, merge_paths = {}, {}
@@ -3145,9 +3509,16 @@ def main(argv=None) -> int:
         print(f"read set: {len(reads)} reads x {reads.shape[1]} bp, "
               f"{os.path.getsize(fasta)} B FASTA; made in "
               f"{time.perf_counter() - t0:.1f} s", flush=True)
-        fold_paths["build-graph"] = phase(
+        fold_paths["build-graph"], merge_paths["build-graph"] = phase(
             "build-graph -k 25", graph_phase, dev, smi, tmp, reads, fasta, RHO)
-        fold_paths["build-graph -k 55"] = phase(
+        route_fold, route_merge, fold_more, merge_routes = phase(
+            "engine routes -k 25", routes_phase, dev, smi, tmp, reads, fasta,
+            RHO)
+        fold_paths.update(route_fold)
+        merge_paths.update(route_merge)
+        merge_more.extend(merge_routes)
+        (fold_paths["build-graph -k 55"],
+         merge_paths["build-graph -k 55"]) = phase(
             "build-graph -k 55 (wide)", graph_phase, dev, smi, tmp, reads,
             fasta, WIDE_RHO)
         phase("one wide flush", wide_flush_ms, dev, smi, WIDE_RHO)
@@ -3182,6 +3553,8 @@ def main(argv=None) -> int:
 
     for name, st, paths in (("merge_fold", fold_stats, fold_paths),
                             ("merge_sorted", merge_stats, merge_paths),
+                            *(("merge_fold", st, st.pop("paths"))
+                              for st in fold_more),
                             *(("merge_sorted", st, st.pop("paths"))
                               for st in merge_more),
                             ("merge_fold", fold_shard, fold_shard["paths"]),
@@ -3204,13 +3577,13 @@ def main(argv=None) -> int:
          "replaces": "gossamer_tpu/ops/pallas_fold.py:151",
          "launches": sum(fold_paths.values()),
          "launches_per_path": fold_paths, **fold_stats,
-         "per_shard": fold_shard},
+         "shapes": fold_more, "per_shard": fold_shard},
         {"name": "merge_sorted", "route": "cuda",
          "source": "gossamer_tpu_torch/csrc/merge.cu",
          "replaces": "gossamer_tpu/ops/pallas_merge.py:116",
          "launches": sum(merge_paths.values()),
          "launches_per_path": merge_paths, **merge_stats,
-         "per_shard": merge_shard}]}), flush=True)
+         "shapes": merge_more, "per_shard": merge_shard}]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

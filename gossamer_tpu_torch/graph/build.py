@@ -1,8 +1,10 @@
-"""Builders: read streams -> KmerSet artifacts (``gossamer_tpu/graph/build.py``).
+"""Builders: read streams -> Graph / KmerSet artifacts
+(``gossamer_tpu/graph/build.py``).
 
-Pipeline parity with ``goss build-kmer-set``
-(``src/GossCmdBuildKmerSet.tcc:213-330``) on the port's counting engine
-(:mod:`gossamer_tpu_torch.ops.count`).
+Pipeline parity with ``goss build-graph`` (``src/GossCmdBuildGraph.cc:
+270-491``) and ``goss build-kmer-set`` (``src/GossCmdBuildKmerSet.tcc:
+213-330``) on the port's counting engine (:mod:`gossamer_tpu_torch.ops.
+count`).
 """
 
 from __future__ import annotations
@@ -14,7 +16,31 @@ import torch
 
 from ..io.readers import Read
 from ..ops.count import count_rho_mers
+from .graph import Graph
 from .kmer_set import KmerSet
+
+
+def build_graph(
+    reads: Iterable[Read],
+    k: int,
+    *,
+    device: torch.device,
+    chunk: int = 1 << 20,
+    cap_entries: int | None = None,
+    progress=None,
+) -> Graph:
+    """Count (k+1)-mers of reads and their reverse complements.
+
+    Matches build-graph semantics: every valid rho-mer window is inserted
+    along with its reverse complement (``src/ReverseComplementAdapter.hh``),
+    giving a symmetric graph.  ``cap_entries`` bounds the device-resident
+    distinct-key working set, as for :func:`build_kmer_set`.
+    """
+    lo, hi, counts = count_rho_mers(
+        reads, k + 1, both_strands=True, canonical=False, device=device,
+        chunk=chunk, progress=progress, cap_entries=cap_entries,
+    )
+    return Graph(k, lo, hi, counts.astype(np.int64), asymmetric=False)
 
 
 def build_kmer_set(

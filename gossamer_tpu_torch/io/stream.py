@@ -1,7 +1,7 @@
 """Flat 2-bit base streams for device kmerization.
 
-Copy of ``flat_code_chunks`` and ``pack_chunk`` from
-``gossamer_tpu/io/stream.py``.  Reads are concatenated into one flat code
+Copy of ``flat_code_chunks``, ``pack_chunk``, ``pack_chunk_sparse`` and
+``packed_code_chunks`` from ``gossamer_tpu/io/stream.py``.  Reads are concatenated into one flat code
 stream with a separator code (255) between reads; any k-mer window
 containing a separator or an invalid base is masked out on device, which
 reproduces the reference's "skip windows with non-ACGT bases" semantics
@@ -66,6 +66,12 @@ def pack_chunk(codes: np.ndarray, k: int, chunk: int | None = None):
     overlap of at most 32 bases: for ``k - 1 > 32`` it raises, and the caller
     feeds raw codes instead (the wide engine packs them on the device).
     """
+    C = _check_packable(codes, k, chunk)
+    inval = np.packbits(codes > 3, bitorder="little")
+    return _pack_words(codes, C), inval
+
+
+def _check_packable(codes: np.ndarray, k: int, chunk: int | None) -> int:
     if k - 1 > 32:
         raise ValueError(f"pack_chunk: the packed format holds an overlap of "
                          f"at most 32 bases (k - 1 = {k - 1}); feed raw codes")
@@ -73,14 +79,51 @@ def pack_chunk(codes: np.ndarray, k: int, chunk: int | None = None):
     if C % 16 or len(codes) != C + k - 1:
         raise ValueError(f"pack_chunk: need C % 16 == 0 and C + k - 1 codes "
                          f"(C={C}, k={k}, codes={len(codes)})")
-    bad = codes > 3
-    inval = np.packbits(bad, bitorder="little")
-    c = np.where(bad, 0, codes).astype(np.uint32)
+    return C
+
+
+def _pack_words(codes: np.ndarray, C: int) -> np.ndarray:
+    """The ``C // 16 + 2`` big-endian 2-bit words of ``codes``; an invalid
+    code packs as 0."""
+    c = np.where(codes > 3, 0, codes).astype(np.uint32)
     W = C // 16 + 2
     pad = W * 16 - len(c)
     if pad > 0:
         c = np.concatenate([c, np.zeros(pad, np.uint32)])
     m = c[: W * 16].reshape(W, 16)
     shifts = (30 - 2 * np.arange(16)).astype(np.uint32)
-    words = np.bitwise_or.reduce(m << shifts, axis=1).astype(np.uint32)
-    return words, inval
+    return np.bitwise_or.reduce(m << shifts, axis=1).astype(np.uint32)
+
+
+def pack_chunk_sparse(codes: np.ndarray, k: int, chunk: int | None = None,
+                      max_pos: int | None = None):
+    """:func:`pack_chunk` with sparse invalidity: ``(words, invpos,
+    n_windows)`` per :func:`gossamer_tpu_torch.ops.kmerize.
+    kmerize_packed_sparse` (``gossamer_tpu/io/stream.py``
+    ``pack_chunk_sparse``).
+
+    ``invpos`` lists the ascending positions of the invalid codes, padded
+    to ``max_pos`` entries (default C // 64) with ``C + k``; a trailing
+    invalid run (the last chunk's padding) is carried by ``n_windows``
+    instead.  Returns None when the chunk holds more invalid codes than
+    ``max_pos``: the caller then packs it with :func:`pack_chunk`.
+    """
+    C = _check_packable(codes, k, chunk)
+    P = max_pos if max_pos is not None else C // 64
+    nz = np.nonzero(codes <= 3)[0]
+    t = int(nz[-1]) + 1 if len(nz) else 0
+    n_win = max(0, min(C, t - k + 1))
+    bad = np.nonzero(codes[:t] > 3)[0]
+    if len(bad) > P:
+        return None
+    invpos = np.full(P, C + k, np.uint32)
+    invpos[: len(bad)] = bad
+    return _pack_words(codes, C), invpos, n_win
+
+
+def packed_code_chunks(
+    reads: Iterable[Read], k: int, chunk: int = 1 << 22
+) -> Iterator[tuple[np.ndarray, np.ndarray]]:
+    """:func:`flat_code_chunks` packed with :func:`pack_chunk`."""
+    for codes in flat_code_chunks(reads, k, chunk=chunk):
+        yield pack_chunk(codes, k, chunk)

@@ -1,11 +1,12 @@
 """K-mer counting entry points: route chunk streams into the engines.
 
 Counterpart of ``gossamer_tpu/ops/count.py`` on one device.  Narrow keys
-(2*rho <= 62) go through :class:`.engine.SpectrumEngine` as packed chunks:
-the native reader yields them, and the Python reader's flat code chunks
-are packed with ``io.stream.pack_chunk``.  Wide keys (rho <= 63) go through
-:class:`.engine_wide.SpectrumEngineWide` as raw code chunks from either
-reader (the packed format stops at an overlap of 32 bases).
+(2*rho <= 62) go through :class:`.engine.SpectrumEngine`: as packed chunks
+when the chunk size is a multiple of 16 (the native reader yields them, and
+the Python reader's flat code chunks are packed with
+``io.stream.pack_chunk``), else as raw code chunks.  Wide keys (rho <= 63)
+go through :class:`.engine_wide.SpectrumEngineWide` as raw code chunks from
+either reader (the packed format stops at an overlap of 32 bases).
 ``n_devices > 1`` (or a ``mesh``) routes through the sharded engines of
 :mod:`..parallel.count_sharded`, as ``gossamer_tpu/ops/count.py`` does.
 """
@@ -128,8 +129,9 @@ def count_chunks(
     mesh=None,
 ):
     """Count over chunks of ``chunk`` windows -> sorted (lo, hi, counts)
-    host arrays.  Narrow keys take ``(words, inval)`` packed chunks, wide
-    keys uint8 arrays of ``chunk + rho - 1`` raw codes.
+    host arrays.  A chunk is a ``(words, inval)`` packed tuple (narrow keys,
+    ``chunk`` a multiple of 16) or a uint8 array of ``chunk + rho - 1`` raw
+    codes; ``chunk=0`` takes the windows of a raw chunk from the first one.
 
     ``both_strands`` counts every window and its reverse complement
     (build-graph semantics): canonical classes are counted at half the
@@ -152,9 +154,8 @@ def count_chunks(
                               progress=progress, log=log,
                               n_devices=n_devices, mesh=mesh)
     narrow = narrow_keys(rho)
-    if chunk <= 0 or (narrow and chunk % 16):
-        raise ValueError(f"need a positive chunk size, for packed chunks "
-                         f"(narrow keys) divisible by 16 (got {chunk})")
+    if chunk < 0:
+        raise ValueError(f"negative chunk size {chunk}")
     on_spill = None
     if log is not None:
         on_spill = lambda i, n: log(  # noqa: E731
@@ -163,22 +164,28 @@ def count_chunks(
     n_chunks = 0
     t0 = time.perf_counter()
     for item in chunks:
-        if eng is None and narrow:
-            cap = cap_entries or min(1 << 25, max(1 << 16, 4 * chunk))
-            eng = SpectrumEngine(rho, mode, chunk, device, batch=batch,
-                                 cap=cap, on_spill=on_spill, fold=fold)
-        elif eng is None:
-            cap = cap_entries or min(1 << 24, max(1 << 16, 4 * chunk))
-            eng = SpectrumEngineWide(rho, mode, chunk, device, batch=batch,
-                                     cap=cap, on_spill=on_spill)
-        with profile.context("count/add_chunk"):
+        packed = isinstance(item, tuple)
+        if eng is None:
+            if packed and (chunk <= 0 or chunk % 16):
+                raise ValueError(f"packed chunks need a chunk size divisible "
+                                 f"by 16 (got {chunk})")
+            lanes = chunk or len(item) - rho + 1
             if narrow:
+                cap = cap_entries or min(1 << 25, max(1 << 16, 4 * lanes))
+                eng = SpectrumEngine(rho, mode, lanes, device, batch=batch,
+                                     cap=cap, on_spill=on_spill, fold=fold)
+            else:
+                cap = cap_entries or min(1 << 24, max(1 << 16, 4 * lanes))
+                eng = SpectrumEngineWide(rho, mode, lanes, device, batch=batch,
+                                         cap=cap, on_spill=on_spill)
+        with profile.context("count/add_chunk"):
+            if packed:
                 eng.add_chunk_packed(np.asarray(item[0]), np.asarray(item[1]))
             else:
                 eng.add_chunk(np.asarray(item))
         n_chunks += 1
         if progress is not None:
-            progress(n_chunks * chunk)
+            progress(n_chunks * lanes)
     if eng is None:
         z = np.zeros(0, dtype=U64)
         return z, z.copy(), np.zeros(0, dtype=np.int64)
@@ -187,17 +194,22 @@ def count_chunks(
         out = eng.finish_expanded() if both_strands else eng.finish()
     if log is not None:
         phases = {"stream": stream, **eng.phases}
+        finish = "; ".join(getattr(eng, "finish_log", ()))
         log("info", f"count: {n_chunks} chunks, {eng.spills} spills, "
-                    f"phases (s) {json.dumps(phases)}")
+                    + (f"finish: {finish}, " if finish else "")
+                    + f"phases (s) {json.dumps(phases)}")
     return out
 
 
 def count_rho_mers(reads: Iterable[Read], rho: int, *, chunk: int = 1 << 22,
                    **kw):
     """Count rho-mers of a read stream (Python reader; narrow chunks packed
-    with ``pack_chunk``) -> sorted (lo, hi, counts) host arrays."""
+    with ``pack_chunk`` when ``chunk`` is a multiple of 16) -> sorted (lo,
+    hi, counts) host arrays."""
+    if chunk <= 0:
+        raise ValueError(f"need a positive chunk size (got {chunk})")
     chunks = flat_code_chunks(reads, rho, chunk=chunk)
-    if narrow_keys(rho):
+    if narrow_keys(rho) and chunk % 16 == 0:
         chunks = (pack_chunk(codes, rho, chunk) for codes in chunks)
     return count_chunks(chunks, rho, chunk=chunk, **kw)
 
@@ -205,14 +217,17 @@ def count_rho_mers(reads: Iterable[Read], rho: int, *, chunk: int = 1 << 22,
 def count_rho_mers_files(paths: list[str], rho: int, *, chunk: int = 1 << 22,
                          fmt: str | None = None, threads: int = 1, log=None,
                          **kw):
-    """Count straight from files through the native reader; only when the
-    native library is unavailable, through the Python parser chain."""
+    """Count straight from files through the native reader (packed chunks
+    for narrow keys at a chunk size divisible by 16, else raw codes); only
+    when the native library is unavailable, through the Python parser
+    chain."""
     from ..io.native import (NativeUnavailable, native_flat_chunks,
                              native_packed_chunks)
     from ..io.readers import read_files
 
     _check_supported(rho)
-    reader = native_packed_chunks if narrow_keys(rho) else native_flat_chunks
+    packed = narrow_keys(rho) and chunk % 16 == 0
+    reader = native_packed_chunks if packed else native_flat_chunks
     try:
         chunks = reader(paths, rho, chunk=chunk, fmt=fmt, threads=threads)
     except NativeUnavailable as e:

@@ -7,8 +7,9 @@ Makes the smoke's seeded E. coli-scale read set once, then runs the port's
 ``build-graph -k K --device cuda`` (``--kmer-size``, default 25) on it from this checkout and from
 ``OTHER_CHECKOUT`` (say, the parent commit unpacked with ``git archive``) in
 the order this, other, other, this, ..., each run in a process of its own
-with its native code built anew beforehand.  Prints every run's wall, count time
-and phases, and the two graphs must be equal.  Host phases vary between
+with its native code built anew beforehand.  Prints every run's wall, count time,
+phases, peak device memory and the count's log line (spills, where the
+finish ran), and the two graphs must be equal.  Host phases vary between
 calls by 10-20%, so two versions are compared only within one call.
 """
 
@@ -36,16 +37,21 @@ from gossamer_tpu_torch.io import native
 from gossamer_tpu_torch.ops import nvcc
 shutil.rmtree(nvcc.BUILD_DIR, ignore_errors=True)  # nothing built elsewhere
 nvcc.build_library("fold")
+nvcc.build_library("merge")
 native.build_library()
+import torch
 t0 = time.perf_counter()
 rc = goss(["build-graph", "-k", "{k}", "-I", {fasta!r}, "-O", {out!r},
            "--device", "cuda", "-l", {out!r} + ".log"])
 wall = time.perf_counter() - t0
 assert rc == 0
 log = open({out!r} + ".log").read()
-phases = json.loads(log.split("phases (s) ")[1].splitlines()[0])
+line = log.split("count: ")[1].splitlines()[0]
+phases = json.loads(line.split("phases (s) ")[1])
 print("RESULT " + json.dumps({{"wall": wall, "count": sum(phases.values()),
-                              **phases}}))
+                              **phases,
+                              "peak_bytes": torch.cuda.max_memory_allocated(),
+                              "count_line": line.split(", phases")[0]}}))
 """
 
 
@@ -60,7 +66,7 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as tmp:
         fasta = os.path.join(tmp, "reads.fa")
         chip_smoke.write_fasta(fasta, chip_smoke.make_reads(
-            np.random.default_rng(2026)))
+            np.random.default_rng(2026))[1])
         order = ["this", "other", "other", "this"] * ((args.rounds + 1) // 2)
         for n, name in enumerate(order[: 2 * args.rounds]):
             out = os.path.join(tmp, f"g_{name}")
