@@ -10,14 +10,16 @@ hand-written kernels.
 
     python3 chip_smoke.py
     python3 chip_smoke.py --wide-memory   # what sizes -B for wide keys
-    python3 chip_smoke.py --routes        # build-graph -k 25, engine routes
+    python3 chip_smoke.py --routes        # build-graph -k 25, engine routes,
+                                          # the early pull
 
 ``--wide-memory`` runs only this: the peak device memory of one wide
 k-merize and one wide flush at 1, 2, 4 and 8 chunks into resident spectra
 of 2^22, 2^24 and 44,739,242 lanes, then ``build-graph -k 55`` of the
 read set sized by ``-B 2`` now and with the cap it had before, in turns
 (spills, wall, peak device memory).  ``--routes`` runs only the kernels'
-builds, build-graph -k 25 (4.) and the engine routes (4b.).
+builds, build-graph -k 25 (4.), the engine routes (4b.) and the early
+pull (4c.).
 
 1. Prints the card's name and power limit (nvidia-smi) and the versions.
 2. Builds the port's native code from this checkout, all compilers started
@@ -65,7 +67,22 @@ builds, build-graph -k 25 (4.) and the engine routes (4b.).
    against its plain version and the library at the shapes of the finish
    on the card (each merge of spilled runs, the expansion).  In 4. the
    finish must run on the card: the log names the card for each merge and
-   the expansion, and ``merge_sorted`` launches once for each.
+   the expansion, and ``merge_sorted`` launches once for each.  The early
+   pull's fallback: the periodic route again with ``early_pull_flush=1``
+   (no hint, no spills, the CLI's cap): the reads' errors leave more new
+   keys after the snapshot than ``_EXC_CAP``, so the reconciled pull stops,
+   says why, and the finish runs as without it: == the periodic route.
+4c. The early pull at ``bench.py``'s count: its stream (seed 42, a 4.6 Mbp
+   genome, 30 passes of error-free 100 bp reads, period 101, 34 periodic
+   chunks of 2^22), cap 2^23 without spills, flushes of 6 + 14 + 14
+   chunks, ``early_pull_flush=1`` with ``expected_distinct``,
+   ``finish_expanded``: the reconciled route with the snapshot's
+   expansion order, at most ``_EXC_CAP`` new keys, 3 ``merge_fold`` and no
+   ``merge_sorted`` launches, == the same engine without the early pull
+   (its finish on the side the cap allows: twice its 4.6M keys pass 2^23
+   lanes, so the host), the counts summing to twice the stream's windows;
+   then both in turns, 3 rounds each (phases, add loop, count wall, peak
+   device memory).
 5. Wide build-graph: the same read set, ``build-graph -k 55`` (112-bit
    keys, the wide engine: PyTorch ops, no kernel launch).  The same checks
    with 128-bit keys as two uint64; its peak device memory must stay within
@@ -1188,7 +1205,25 @@ def routes_phase(dev, smi: str, tmp: str, reads, fasta: str, rho: int):
           and int(got[2].sum()) == n_windows,
           f"periodic route on {len(clean)} N-free reads: {len(got[0])} "
           f"classes, {n_windows} windows == the packed route")
-    del periodic, bitmap, got, ref
+    del bitmap, ref
+
+    # the early pull where the reads' errors leave more new keys after the
+    # snapshot than the reconciled pull takes: its stop, then the finish
+    early = path("early pull (fallback)", count, "add_chunk_packed_periodic",
+                 periodic, expanded=False, period=period, spill=False,
+                 early_pull_flush=1)
+    stop = [step for step in finish_log
+            if step.startswith("reconciled pull stopped")]
+    print(f"  early pull (fallback): route {'; '.join(finish_log)}",
+          flush=True)
+    check(all(np.array_equal(g, w) for g, w in zip(early, got)),
+          f"early pull (fallback): {len(early[0])} classes == the periodic "
+          f"route's")
+    m = re.search(r"n_new ([\d,]+) of", stop[0]) if stop else None
+    check(m is not None and int(m[1].replace(",", "")) > E._EXC_CAP,
+          f"early pull (fallback): the reconciled pull stopped at "
+          f"{m[1] if m else '?'} new keys, more than {E._EXC_CAP:,}")
+    del periodic, got, early
 
     # expand_step and spectra_merge (no path of the port calls them) on
     # the canonical spectrum of the graph
@@ -1246,6 +1281,134 @@ def routes_phase(dev, smi: str, tmp: str, reads, fasta: str, rho: int):
                            "paths": {"engine, packed chunks": n}})
     print(f"  driven directly, merge_fold launches: {direct}", flush=True)
     return fold_paths, merge_paths, fold_rows, merge_rows
+
+
+# ------------------------------------------- early pull, bench.py's count
+BENCH_GENOME_MB = 4.6  # bench.py's counting configuration
+BENCH_PASSES = 30
+BENCH_READ_LEN = 100
+BENCH_CAP = 1 << 23
+BENCH_BATCH, BENCH_FIRST = 14, 6  # 34 chunks as 6 + 14 + 14
+
+
+def synth_stream(genome_mb: float, coverage: int, read_len: int, rho: int,
+                 chunk: int):
+    """``bench.py``'s ``synth_stream`` (numpy only): ``coverage`` passes of
+    error-free ``read_len`` reads tiling a seeded random genome from a
+    random offset, each read followed by one 255 separator -> (flat codes,
+    chunks, the passes' starts, the end of the data, the reads)."""
+    rng = np.random.default_rng(42)
+    glen = int(genome_mb * 1e6)
+    genome = rng.integers(0, 4, size=glen, dtype=np.uint8)
+    total = coverage * (glen // read_len) * (read_len + 1)
+    n_chunks = -(-total // chunk)
+    flat = np.full(n_chunks * chunk + rho - 1, 255, np.uint8)
+    pos, n_reads, pass_starts = 0, 0, []
+    for _ in range(coverage):
+        off = int(rng.integers(0, read_len))
+        rows = (glen - off) // read_len
+        pass_starts.append(pos)
+        m = flat[pos : pos + rows * (read_len + 1)].reshape(rows, read_len + 1)
+        m[:, :read_len] = genome[off : off + rows * read_len].reshape(
+            rows, read_len)
+        pos += rows * (read_len + 1)
+        n_reads += rows
+    return flat, n_chunks, pass_starts, pos, n_reads
+
+
+def bench_chunks(rho: int):
+    """``bench.py``'s periodic chunks of :func:`synth_stream` -> (chunks
+    ``(words, phase, bound, windows)``, the stream's valid windows: each
+    read's ``read_len - rho + 1``)."""
+    from gossamer_tpu_torch.io.stream import pack_chunk
+
+    flat, n_chunks, starts, data_end, n_reads = synth_stream(
+        BENCH_GENOME_MB, BENCH_PASSES, BENCH_READ_LEN, rho, CHUNK)
+    period = BENCH_READ_LEN + 1
+    chunks = []
+    for i in range(n_chunks):
+        p0 = i * CHUNK
+        words, _ = pack_chunk(flat[p0 : p0 + CHUNK + rho - 1], rho, CHUNK)
+        cur = max(p for p in starts if p <= p0)
+        nxt = [p for p in starts if p > p0]
+        chunks.append((words, (p0 - cur) % period,
+                       (nxt[0] - p0) if nxt else CHUNK + rho,
+                       max(0, min(CHUNK, data_end - rho + 1 - p0))))
+    return chunks, n_reads * (BENCH_READ_LEN - rho + 1)
+
+
+def early_pull_phase(dev, smi: str, rho: int):
+    """``bench.py``'s count (``build_graph_kmers_per_sec``): the periodic
+    chunks into ``cap = 2^23`` without spills, flushes of 6 + 14 + 14
+    chunks, the early pull after the first with ``expected_distinct``,
+    ``finish_expanded``.  It must take the reconciled route with the
+    snapshot's expansion order, few new keys, 3 ``merge_fold`` and no
+    ``merge_sorted`` launches, and give the output of the same engine
+    without the early pull (its finish on the side the cap allows), whose
+    counts sum to twice the stream's windows.  Then both in turns, 3 rounds each:
+    phases, the add loop, the count's wall, peak device memory.  -> (the
+    path's merge_fold launches, its merge_sorted launches)."""
+    import torch
+
+    from gossamer_tpu_torch.ops import engine as E
+    from gossamer_tpu_torch.ops import fold
+
+    t0 = time.perf_counter()
+    chunks, n_windows = bench_chunks(rho)
+    print(f"  bench.py's stream: {len(chunks)} periodic chunks, {n_windows} "
+          f"windows, made in {time.perf_counter() - t0:.1f} s", flush=True)
+
+    def run(early: bool):
+        torch.cuda.synchronize(dev)
+        before = torch.cuda.memory_allocated(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        kw = dict(early_pull_flush=1,
+                  expected_distinct=int(BENCH_GENOME_MB * 1.1e6)) if early else {}
+        eng = E.SpectrumEngine(rho, "value", CHUNK, dev, batch=BENCH_BATCH,
+                               first_batch=BENCH_FIRST, cap=BENCH_CAP,
+                               spill=False, period=BENCH_READ_LEN + 1, **kw)
+        t0 = time.perf_counter()
+        for item in chunks:
+            eng.add_chunk_packed_periodic(*item)
+        add = time.perf_counter() - t0
+        out = eng.finish_expanded()
+        wall = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated(dev) - before
+        print(f"  early pull {'on' if early else 'off'}: count {wall:.3f} s, "
+              f"add loop {add:.3f} s, phases "
+              f"{json.dumps(eng.phases)}, "
+              f"peak {peak} B on {smi}; finish: {'; '.join(eng.finish_log)}",
+              flush=True)
+        return out, eng.finish_log
+
+    zero_launches()
+    got, log = run(True)
+    n_fold, n_merge = fold.merge_fold.launches, merge_launches("early pull")
+    want, _ = run(False)
+    rec = [re.match(r"reconciled pull of [\d,]+ keys: n1 ([\d,]+) from the "
+                    r"snapshot, n_new ([\d,]+)$", step) for step in log]
+    rec = [m for m in rec if m]
+    n_new = int(rec[0][2].replace(",", "")) if rec else -1
+    check(rec and log[-1].endswith("on the host: order")
+          and 0 <= n_new <= E._EXC_CAP,
+          f"early pull (bench configuration): the reconciled route, the "
+          f"snapshot's order, n1 {rec[0][1] if rec else '?'} keys, n_new "
+          f"{n_new:,} of at most {E._EXC_CAP:,}")
+    check(n_fold == 3 and n_merge == 0,
+          f"early pull (bench configuration): merge_fold launched {n_fold} "
+          f"times (6 + 14 + 14 chunks), merge_sorted {n_merge}")
+    check(all(np.array_equal(g, w) for g, w in zip(got, want))
+          and int(want[2].sum()) == 2 * n_windows,
+          f"early pull (bench configuration): {len(got[0])} edges == the "
+          f"finish without the early pull, counts summing to 2 x "
+          f"{n_windows} windows")
+    for r in range(3):
+        for early in ((True, False) if r % 2 == 0 else (False, True)):
+            out, _ = run(early)
+            check(all(np.array_equal(g, w) for g, w in zip(out, want)),
+                  f"round {r + 1}, early pull {'on' if early else 'off'}: "
+                  f"the same edges")
+    return n_fold, n_merge
 
 
 def wide_flush_ms(dev, smi: str, rho: int) -> None:
@@ -3495,6 +3658,8 @@ def main(argv=None) -> int:
             for out in phase("engine routes -k 25", routes_phase, dev, smi,
                              tmp, reads, fasta, RHO):
                 print(json.dumps(out), flush=True)
+        print(phase("early pull, bench.py's count", early_pull_phase, dev,
+                    smi, RHO), flush=True)
         return 0
     check(not argv, f"no arguments, --wide-memory or --routes alone (got "
                     f"{argv})")
@@ -3517,6 +3682,9 @@ def main(argv=None) -> int:
         fold_paths.update(route_fold)
         merge_paths.update(route_merge)
         merge_more.extend(merge_routes)
+        (fold_paths["early pull (bench configuration)"],
+         merge_paths["early pull (bench configuration)"]) = phase(
+            "early pull, bench.py's count", early_pull_phase, dev, smi, RHO)
         (fold_paths["build-graph -k 55"],
          merge_paths["build-graph -k 55"]) = phase(
             "build-graph -k 55 (wide)", graph_phase, dev, smi, tmp, reads,

@@ -195,7 +195,9 @@ def count_chunks(
     if log is not None:
         phases = {"stream": stream, **eng.phases}
         finish = "; ".join(getattr(eng, "finish_log", ()))
+        pulls = "; ".join(getattr(eng, "pulls", ()))
         log("info", f"count: {n_chunks} chunks, {eng.spills} spills, "
+                    + (f"pulls: {pulls}, " if pulls else "")
                     + (f"finish: {finish}, " if finish else "")
                     + f"phases (s) {json.dumps(phases)}")
     return out
