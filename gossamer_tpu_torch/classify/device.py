@@ -179,7 +179,9 @@ def _gather(out_dev, out_counts) -> np.ndarray:
     if not out_dev:
         return np.zeros(0, np.uint8)
     with profile.context("classify/wait"):
-        return torch.cat([b[:n] for b, n in zip(out_dev, out_counts)]).cpu().numpy()
+        out = torch.cat([b[:n] for b, n in zip(out_dev, out_counts)])
+        profile.count("d2h_bytes", out.nbytes)
+        return out.cpu().numpy()
 
 
 def classify_codes_device(codes_list, set_E: torch.Tensor, k: int,
@@ -206,6 +208,7 @@ def classify_codes_device(codes_list, set_E: torch.Tensor, k: int,
     out_counts = []
 
     def to_dev(a: np.ndarray) -> torch.Tensor:
+        profile.count("h2d_bytes", a.nbytes)
         return torch.from_numpy(a).to(device)
 
     for buf in _batches(codes_list, window, max_reads):

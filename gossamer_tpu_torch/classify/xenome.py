@@ -19,6 +19,7 @@ oracle.
 
 from __future__ import annotations
 
+from itertools import islice
 from typing import Iterable, Iterator
 
 import numpy as np
@@ -30,6 +31,7 @@ from ..utils import profile
 from .annotated_set import AnnotatedKmerSet
 
 SEP = np.uint8(255)
+BATCH_READS = 4096  # reads a batch: parsed, encoded, joined, written
 
 # blrg -> output stream class (GossCmdGroupReads.cc:606-621)
 OUT_CLASS = [
@@ -180,25 +182,44 @@ def _classifier(ann: AnnotatedKmerSet, passes: int, device, n_devices: int,
         from ..parallel.mesh import data_mesh
 
         mesh = data_mesh(n_devices, device)
-    return DeviceClassifier(ann_slices(ann, passes), device, mesh)
+    with profile.context("classify/index"):  # E encoded, copied to the card
+        return DeviceClassifier(ann_slices(ann, passes), device, mesh)
 
 
-def classify_reads(
+def classify_reads(reads: Iterable[Read], ann: AnnotatedKmerSet,
+                   **kw) -> Iterator[tuple[Read, int]]:
+    """Yield (read, blrg) preserving input order (the keywords of
+    :func:`classify_read_batches`)."""
+    for buf, blrg in classify_read_batches(reads, ann, **kw):
+        for rd, b in zip(buf, blrg.tolist()):
+            yield rd, b
+
+
+def classify_read_batches(
     reads: Iterable[Read], ann: AnnotatedKmerSet, *, device: torch.device,
-    batch_reads: int = 4096, passes: int = 1, n_devices: int = 1, mesh=None,
-) -> Iterator[tuple[Read, int]]:
-    """Yield (read, blrg) preserving input order.  ``n_devices`` above 1, or
-    a ``mesh``, shards the set of narrow keys over a mesh: the multipass
-    decomposition run in space instead of time."""
+    batch_reads: int = BATCH_READS, passes: int = 1, n_devices: int = 1,
+    mesh=None,
+) -> Iterator[tuple[list[Read], np.ndarray]]:
+    """Yield (reads, their blrg as uint8) a batch of ``batch_reads`` at a
+    time, in input order.  ``n_devices`` above 1, or a ``mesh``, shards the
+    set of narrow keys over a mesh: the multipass decomposition run in
+    space instead of time."""
     clf = _classifier(ann, passes, device, n_devices, mesh)
-    buf: list[Read] = []
-    for rd in reads:
-        buf.append(rd)
-        if len(buf) >= batch_reads:
-            yield from _flush(buf, clf)
-            buf = []
-    if buf:
-        yield from _flush(buf, clf)
+    for buf in _read_batches(reads, batch_reads):
+        yield buf, clf.blrg(_encode(buf))
+
+
+def _read_batches(reads, n: int):
+    """``reads`` in lists of ``n`` (the last one shorter), each list's
+    parse timed as one scope ``classify/read``: a clock reading a read
+    would cost more than a tenth of the call."""
+    it = iter(reads)
+    while True:
+        with profile.context("classify/read"):
+            buf = list(islice(it, max(1, n)))
+        if not buf:
+            return
+        yield buf
 
 
 def _encode(reads) -> list[np.ndarray]:
@@ -206,33 +227,26 @@ def _encode(reads) -> list[np.ndarray]:
         return [K.encode_bases(r.seq) for r in reads]
 
 
-def _flush(buf: list[Read], clf: DeviceClassifier):
-    blrg = clf.blrg(_encode(buf))
-    for rd, b in zip(buf, blrg):
-        yield rd, int(b)
+def classify_pairs(pairs: Iterable[tuple[Read, Read]], ann: AnnotatedKmerSet,
+                   **kw) -> Iterator[tuple[Read, Read, int]]:
+    """Paired classification: blrg = OR of the mates' blrgs (the keywords
+    of :func:`classify_read_batches`)."""
+    for buf, blrg in classify_pair_batches(pairs, ann, **kw):
+        for (a, b), x in zip(buf, blrg.tolist()):
+            yield a, b, x
 
 
-def classify_pairs(
+def classify_pair_batches(
     pairs: Iterable[tuple[Read, Read]], ann: AnnotatedKmerSet, *,
-    device: torch.device, batch_reads: int = 4096, passes: int = 1,
+    device: torch.device, batch_reads: int = BATCH_READS, passes: int = 1,
     n_devices: int = 1, mesh=None,
-) -> Iterator[tuple[Read, Read, int]]:
-    """Paired classification: blrg = OR of the mates' blrgs."""
+) -> Iterator[tuple[list[tuple[Read, Read]], np.ndarray]]:
+    """:func:`classify_read_batches` of read pairs: a pair's blrg is the OR
+    of its mates'."""
     clf = _classifier(ann, passes, device, n_devices, mesh)
-    buf: list[tuple[Read, Read]] = []
-    for pr in pairs:
-        buf.append(pr)
-        if len(buf) >= batch_reads:
-            yield from _flush_pairs(buf, clf)
-            buf = []
-    if buf:
-        yield from _flush_pairs(buf, clf)
-
-
-def _flush_pairs(buf, clf: DeviceClassifier):
-    blrg = clf.blrg(_encode(r for pr in buf for r in pr))
-    for i, (a, b) in enumerate(buf):
-        yield a, b, int(blrg[2 * i] | blrg[2 * i + 1])
+    for buf in _read_batches(pairs, batch_reads):
+        blrg = clf.blrg(_encode(r for pr in buf for r in pr))
+        yield buf, blrg[0::2] | blrg[1::2]
 
 
 # -------------------------------------------------------------- reporting

@@ -103,9 +103,13 @@ class App:
         ctx = Context(fac=fac, log=log, opts=ns, device=device,
                       debug_flags=set(ns.debug or []))
         # hidden profiler (reference Profile.hh scopes): -D print-profile
+        # reports this call's scopes and counters, then restores the switch
         from ..utils import profile
 
-        if ctx.debug("print-profile"):
+        profiling = ctx.debug("print-profile")
+        was_on = profile.enabled()
+        if profiling:
+            profile.reset()
             profile.enable()
         try:
             self.commands[ns.command].run(ctx)
@@ -120,8 +124,9 @@ class App:
             traceback.print_exc()
             return 1
         finally:
-            if ctx.debug("print-profile"):
+            if profiling:
                 profile.report()
+                profile.enable(was_on)
             log.close()
 
 

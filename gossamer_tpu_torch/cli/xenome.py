@@ -26,8 +26,8 @@ from ..classify.annotated_set import (
 )
 from ..classify.xenome import (
     OUT_CLASS,
-    classify_pairs,
-    classify_reads,
+    classify_pair_batches,
+    classify_read_batches,
     out_filename,
     print_read,
     print_stats,
@@ -35,6 +35,7 @@ from ..classify.xenome import (
 from ..cli.framework import App, Command, CommandError, Context, add_input_options, gather_read_files
 from ..graph.build import build_kmer_set
 from ..io.readers import read_file, read_pair_files
+from ..utils import profile
 from ..utils.logging import Timer
 
 
@@ -104,7 +105,8 @@ def _classify_run(ctx: Context) -> None:
     import torch
 
     o = ctx.opts
-    ann = AnnotatedKmerSet.read(o.prefix, ctx.fac)
+    with profile.context("xenome/index_load"):
+        ann = AnnotatedKmerSet.read(o.prefix, ctx.fac)
     n_devices = int(o.num_devices or 0)
     if n_devices == 0:
         n_devices = (torch.cuda.device_count() if ctx.device.type == "cuda"
@@ -133,15 +135,17 @@ def _classify_run(ctx: Context) -> None:
                     outs[(cls, half)] = ctx.fac.open_write_text(name)
                     ctx.log("info", f"writing to {name}")
         try:
-            for a, b, blrg in classify_pairs(
+            for buf, blrg in classify_pair_batches(
                 read_pair_files(lhs_files, rhs_files, ctx.fac), ann,
                 device=ctx.device, passes=passes, n_devices=n_devices,
             ):
-                counts[blrg] += 1
+                counts += np.bincount(blrg, minlength=16)
                 if write:
-                    cls = _cls_name(blrg, o.graft_name, o.host_name)
-                    print_read(outs[(cls, "1")], a)
-                    print_read(outs[(cls, "2")], b)
+                    with profile.context("xenome/write"):
+                        for (a, b), x in zip(buf, blrg.tolist()):
+                            cls = _cls_name(x, o.graft_name, o.host_name)
+                            print_read(outs[(cls, "1")], a)
+                            print_read(outs[(cls, "2")], b)
         finally:
             for f in outs.values():
                 f.close()
@@ -153,13 +157,16 @@ def _classify_run(ctx: Context) -> None:
                 outs[cls] = ctx.fac.open_write_text(name)
                 ctx.log("info", f"writing to {name}")
         try:
-            for rd, blrg in classify_reads(
+            for buf, blrg in classify_read_batches(
                 (r for name, fmt in files for r in read_file(name, ctx.fac, fmt)),
                 ann, device=ctx.device, passes=passes, n_devices=n_devices,
             ):
-                counts[blrg] += 1
+                counts += np.bincount(blrg, minlength=16)
                 if write:
-                    print_read(outs[_cls_name(blrg, o.graft_name, o.host_name)], rd)
+                    with profile.context("xenome/write"):
+                        for rd, x in zip(buf, blrg.tolist()):
+                            cls = _cls_name(x, o.graft_name, o.host_name)
+                            print_read(outs[cls], rd)
         finally:
             for f in outs.values():
                 f.close()

@@ -12,6 +12,7 @@ import numpy as np
 
 from .. import MAX_K
 from ..cli.framework import Command, CommandError, Context, add_input_options, gather_read_files
+from ..utils import profile
 from ..utils.logging import Timer
 
 
@@ -166,7 +167,8 @@ def _build_graph_run(ctx: Context) -> None:
         raise CommandError(f"kmer size {k} exceeds maximum {MAX_K}")
     t = Timer()
     lo, hi, counts = _counted_spectrum(ctx, k + 1, both=True, canon=False)
-    g = Graph(k, lo, hi, counts.astype(np.int64), asymmetric=False)
+    with profile.context("build-graph/graph"):
+        g = Graph(k, lo, hi, counts.astype(np.int64), asymmetric=False)
     g.write(ctx.opts.graph_out, ctx.fac)
     ctx.log("info", f"build-graph: {g.count} edges in {t.check():.2f}s")
     if ctx.debug("dump-graph-build-stats") or ctx.debug("print-stats"):

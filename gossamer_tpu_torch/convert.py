@@ -20,6 +20,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .utils import profile
+
 SENT32 = 0xFFFFFFFF
 SENT64 = (1 << 63) - 1
 
@@ -54,6 +56,7 @@ def set_from_u64(set_E: np.ndarray, device: torch.device) -> torch.Tensor:
     set_E = np.ascontiguousarray(set_E, dtype=np.uint64)
     if len(set_E) and int(set_E.max()) >> 63:
         raise ValueError("set E values must be below 2^63 (narrow keys)")
+    profile.count("h2d_bytes", set_E.nbytes)
     return torch.from_numpy(set_E.view(np.int64)).to(device)
 
 

@@ -147,6 +147,7 @@ def count_chunks(
     """
     _check_supported(rho)
     mode = "ref" if canonical else ("value" if both_strands else "plain")
+    chunks = profile.iterate("count/read", chunks)  # the reader's next()
     if n_devices > 1 or mesh is not None:
         return _count_sharded(chunks, rho, mode=mode, expand=both_strands,
                               device=device,

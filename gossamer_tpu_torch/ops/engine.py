@@ -57,6 +57,7 @@ from concurrent.futures import ThreadPoolExecutor
 import numpy as np
 import torch
 
+from ..utils import profile
 from .canon import MODES, canonicalize, rc
 from .fold import SENT, merge_fold, merge_fold_reference
 from .kmerize import (kmerize_packed, kmerize_packed_periodic,
@@ -224,6 +225,7 @@ def empty_spec(cap: int, device: torch.device):
 
 
 def _to_device(arr: np.ndarray, device: torch.device) -> torch.Tensor:
+    profile.count("h2d_bytes", arr.nbytes)
     t = torch.from_numpy(arr)
     if device.type == "cuda":  # pinned, so the copy does not block the host
         return t.pin_memory().to(device, non_blocking=True)
@@ -243,29 +245,40 @@ def _run_to_device(lo: np.ndarray, c: np.ndarray, device: torch.device):
             _to_device(np.ascontiguousarray(c, np.int64), device))
 
 
+def _to_host(t: torch.Tensor) -> np.ndarray:
+    """A tensor pulled to host memory (the host waits for the work queued
+    before the copy): scope ``to_host``, counter ``#d2h_bytes``."""
+    profile.count("d2h_bytes", t.nbytes)
+    with profile.context("to_host"):
+        return t.cpu().numpy()
+
+
 def _run_to_host(keys: torch.Tensor, counts: torch.Tensor):
-    return keys.cpu().numpy().view(np.uint64), counts.cpu().numpy()
+    return _to_host(keys).view(np.uint64), _to_host(counts)
 
 
 def _merge_all(runs: list, merge, log: list, side: str):
     """Merge ``runs`` two at a time, smallest first (as the JAX engine's
     ``_merged_host``) with ``merge`` -> one run; each merge logged."""
-    while len(runs) > 1:
-        runs.sort(key=lambda r: len(r[0]))
-        a, b = runs.pop(0), runs.pop(0)
-        log.append(f"merge of {len(a[0]):,} + {len(b[0]):,} keys {side}")
-        runs.append(merge(*a, *b))
-        del a, b  # the inputs go before the next merge
-    return runs[0]
+    with profile.context("merge"):
+        while len(runs) > 1:
+            runs.sort(key=lambda r: len(r[0]))
+            a, b = runs.pop(0), runs.pop(0)
+            log.append(f"merge of {len(a[0]):,} + {len(b[0]):,} keys {side}")
+            runs.append(merge(*a, *b))
+            del a, b  # the inputs go before the next merge
+        return runs[0]
 
 
 def _sync(device: torch.device) -> None:
     if device.type == "cuda":
-        torch.cuda.synchronize(device)
+        with profile.context("sync"):
+            torch.cuda.synchronize(device)
 
 
 def _read_live(live: torch.Tensor) -> int:
-    n = int(live)  # device sync
+    with profile.context("sync"):
+        n = int(live)  # device sync
     if n < 0:
         raise RuntimeError("merge_fold inputs were not ascending (live = -1)")
     return n
@@ -660,11 +673,12 @@ class SpectrumEngine:
         if self._snap is not None:
             self._snap_note = "cancelled by a spill"
         self._snap = self._prex = self._fin = self._fin_pull = None
-        lo, _hi, c = self._finish_planes(self.spec)
-        try:
-            self.host_runs.append(("eac", encode_spill_run(lo, c), len(lo)))
-        except NativeUnavailable:
-            self.host_runs.append(("raw", lo, c))
+        with profile.context("spill"):
+            lo, _hi, c = self._finish_planes(self.spec)
+            try:
+                self.host_runs.append(("eac", encode_spill_run(lo, c), len(lo)))
+            except NativeUnavailable:
+                self.host_runs.append(("raw", lo, c))
         self.spills += 1
         if self.on_spill is not None:
             self.on_spill(self.spills, len(lo))
@@ -681,8 +695,9 @@ class SpectrumEngine:
 
         n_out = _read_live(self.live_scalars[-1]) if self.live_scalars else 0
         self._check_live()
-        runs = [decode_spill_run(a, b) if kind == "eac" else (a, b)
-                for kind, a, b in self.host_runs]
+        with profile.context("decode"):
+            runs = [decode_spill_run(a, b) if kind == "eac" else (a, b)
+                    for kind, a, b in self.host_runs]
         lanes = n_out + sum(len(r[0]) for r in runs)
         if factor * lanes <= self.req_cap:
             live = tuple(t[:n_out].clone() for t in self.spec)
@@ -753,11 +768,11 @@ class SpectrumEngine:
         flush."""
         from .count import _expand_symmetric
 
-        t0 = time.perf_counter()
         try:
-            self._start_finish()
-            _sync(self.device)
-            self.phases = {"flush_tail": time.perf_counter() - t0}
+            with profile.context("flush_tail", clock=True) as tail:
+                self._start_finish()
+                _sync(self.device)
+            self.phases = {"flush_tail": tail.seconds}
             if self.spec is None:
                 z = np.zeros(0, np.uint64)
                 return z, z.copy(), np.zeros(0, np.int64)
@@ -774,22 +789,23 @@ class SpectrumEngine:
                     return out
         finally:
             self._end_snapshot()
-        t0 = time.perf_counter()
-        runs, on_device = self._finish_runs(2)
-        side = self._side(on_device)
-        run = _merge_all(runs, merge_runs if on_device else _host_merge,
-                         self.finish_log, side)
-        del runs
-        _sync(self.device)
-        self.phases["pull"] = time.perf_counter() - t0
-        t0 = time.perf_counter()
-        self.finish_log.append(f"expansion of {len(run[0]):,} keys {side}")
-        if on_device:
-            lo, c = _run_to_host(*expand_symmetric(*run, self.rho))
-            out = lo, np.zeros_like(lo), c
-        else:
-            out = _expand_symmetric(*run, self.rho)
-        self.phases["expand"] = time.perf_counter() - t0
+        # the phases' seconds are their scopes' (one clock reading each)
+        with profile.context("pull", clock=True) as pull:
+            runs, on_device = self._finish_runs(2)
+            side = self._side(on_device)
+            run = _merge_all(runs, merge_runs if on_device else _host_merge,
+                             self.finish_log, side)
+            del runs
+            _sync(self.device)
+        self.phases["pull"] = pull.seconds
+        with profile.context("expand", clock=True) as expand:
+            self.finish_log.append(f"expansion of {len(run[0]):,} keys {side}")
+            if on_device:
+                lo, c = _run_to_host(*expand_symmetric(*run, self.rho))
+                out = lo, np.zeros_like(lo), c
+            else:
+                out = _expand_symmetric(*run, self.rho)
+        self.phases["expand"] = expand.seconds
         return out
 
     def _finish_planes(self, spec):
@@ -815,27 +831,27 @@ class SpectrumEngine:
         l1_bits = max(0, 2 * self.rho - 32)
         if 32 - l1_bits >= 8:
             sat = (1 << (32 - l1_bits)) - 1
-            p1, l0 = (t.cpu().numpy().view(np.uint32)
+            p1, l0 = (_to_host(t).view(np.uint32)
                       for t in _slice_pieces_packed(keys, counts, l1_bits))
             l1 = p1 & np.uint32((1 << l1_bits) - 1)
             c = (p1 >> np.uint32(l1_bits)).astype(np.int64)
             lo = (l1.astype(np.uint64) << np.uint64(32)) | l0
             if n_out and c.max() >= sat:
-                c = counts.cpu().numpy()
+                c = _to_host(counts)
                 self.pulls.append(f"{n_out:,} keys: packed counts, the "
                                   f"counts again (one saturates)")
             else:
                 self.pulls.append(f"{n_out:,} keys: packed counts")
         else:
-            lo = keys.cpu().numpy().view(np.uint64)
-            c = counts.cpu().numpy()
+            lo = _to_host(keys).view(np.uint64)
+            c = _to_host(counts)
             self.pulls.append(f"{n_out:,} keys: exact")
         return lo, np.zeros_like(lo), c
 
     def _pull_delta(self, spec, n_out: int):
         """The delta-packed pull of the first ``n_out`` lanes; None when
         the exceptions pass ``_EXC_CAP``."""
-        d, cpack, exc, n_exc = (t.cpu().numpy() for t in _delta_pack(
+        d, cpack, exc, n_exc = (_to_host(t) for t in _delta_pack(
             spec[0][:n_out], spec[1][:n_out]))
         n_exc = int(n_exc)
         if n_exc > _EXC_CAP:
@@ -1078,7 +1094,8 @@ class SpectrumEngine:
     def _check_live(self) -> None:
         if not self.live_scalars:
             return
-        lives = torch.stack(self.live_scalars).cpu()
+        with profile.context("sync"):
+            lives = torch.stack(self.live_scalars).cpu()
         if int(lives.min()) < 0:
             raise RuntimeError("merge_fold inputs were not ascending "
                                "(live = -1)")
