@@ -24,6 +24,7 @@ from __future__ import annotations
 from dataclasses import dataclass
 
 import numpy as np
+import torch
 
 from .. import GRAPH_VERSION
 from ..core import kmer as K
@@ -34,6 +35,39 @@ from ..utils import profile
 from .kmer_set import rank128
 
 U64 = np.uint64
+
+
+def count_hist(counts: np.ndarray, top: int | None = None):
+    """``np.unique(counts, return_counts=True)``: the multiplicities in the
+    counts' dtype, ascending, and their frequencies as int64; two empty
+    int64 arrays for no counts, as the JAX package gives.  ``top`` is
+    ``counts.max()`` where the caller has it.
+
+    Counted, not sorted, where every count lies in ``[0, max(2**16, n))``
+    for ``n`` counts and in the signed integer of their width: the bins
+    then cost no more than an int64 copy of the counts (``#hist_counted``).
+    Any other input is sorted (``#hist_sorted``).
+    """
+    if len(counts) == 0:
+        return np.zeros(0, dtype=np.int64), np.zeros(0, dtype=np.int64)
+    if top is None:
+        top = int(counts.max())
+    kind, signed = counts.dtype.kind, np.dtype(f"i{counts.itemsize}")
+    if (kind in "iu" and top < max(1 << 16, len(counts))
+            and top <= np.iinfo(signed).max
+            and (kind == "u" or int(counts.min()) >= 0)):
+        profile.count("hist_counted", 1)
+        # torch's bincount reads 32-bit counts as they are, where numpy's
+        # first widens them to intp; from_numpy takes no read-only or
+        # reversed array
+        x = counts.view(signed)
+        if not (x.flags.writeable and x.flags.c_contiguous):
+            x = x.copy()
+        bins = torch.bincount(torch.from_numpy(x)).numpy()
+        mult = np.flatnonzero(bins)
+        return mult.astype(counts.dtype), bins[mult]
+    profile.count("hist_sorted", 1)
+    return np.unique(counts, return_counts=True)
 
 
 @dataclass
@@ -63,8 +97,9 @@ class Graph:
     def write(self, basename: str, fac: FileFactory) -> None:
         with profile.context("graph/write"):
             counts = self.counts
-            if len(counts) == 0 or int(counts.max()) < (1 << 32):
-                counts = counts.astype(np.uint32)
+            top = int(counts.max()) if len(counts) else 0
+            if top < (1 << 32):
+                counts = counts.astype(np.uint32, copy=False)
             narrow = 2 * self.rho <= 64
             write_header(
                 fac,
@@ -85,10 +120,14 @@ class Graph:
             # histogram sidecar, reference format: "<multiplicity>\t<freq>\n"
             # ascending (src/Graph.cc:127-134)
             with profile.context("hist"):
-                mult, freq = self.hist()
-                with fac.open_write_text(basename + "-counts-hist.txt") as f:
-                    for m, c in zip(mult, freq):
-                        f.write(f"{m}\t{c}\n")
+                # the file's uint32 counts are the quicker to count; they
+                # are the graph's own unless one of those is negative
+                if (len(counts) and self.counts.dtype.kind == "i"
+                        and int(self.counts.min()) < 0):
+                    counts = self.counts
+                mult, freq = count_hist(counts, top)
+                fac.write_text(basename + "-counts-hist.txt", "".join(
+                    f"{m}\t{c}\n" for m, c in zip(mult.tolist(), freq.tolist())))
 
     @classmethod
     def read(cls, basename: str, fac: FileFactory) -> "Graph":
@@ -227,9 +266,7 @@ class Graph:
 
     def hist(self):
         """(multiplicities, frequencies) ascending (``Graph::hist``)."""
-        if self.count == 0:
-            return np.zeros(0, dtype=np.int64), np.zeros(0, dtype=np.int64)
-        return np.unique(self.counts, return_counts=True)
+        return count_hist(self.counts)
 
     # -- editing ---------------------------------------------------------
     def remove_edges(self, dead: np.ndarray) -> "Graph":

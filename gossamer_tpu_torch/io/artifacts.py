@@ -14,6 +14,7 @@ import json
 
 import numpy as np
 
+from ..utils import profile
 from .factory import FileFactory
 
 
@@ -39,10 +40,15 @@ def read_header(fac: FileFactory, basename: str, expected_version: int | None) -
 
 
 def write_array(fac: FileFactory, name: str, arr: np.ndarray) -> None:
-    buf = io.BytesIO()
-    np.save(buf, np.ascontiguousarray(arr), allow_pickle=False)
+    """``np.save``'s bytes, streamed into the file: numpy's format writer
+    hands a real file the array's own buffer (``tofile``) and writes any
+    other stream (gzip, memory, stdout) in 16 MiB chunks, so nothing stages
+    a copy of the whole array.  Counts the array's bytes, the header aside
+    (``#write_bytes``)."""
+    arr = np.ascontiguousarray(arr)
     with fac.open_write(name) as f:
-        f.write(buf.getvalue())
+        np.lib.format.write_array(f, arr, allow_pickle=False)
+    profile.count("write_bytes", arr.nbytes)
 
 
 def read_array(fac: FileFactory, name: str) -> np.ndarray:

@@ -189,6 +189,12 @@ def test_build_graph_scopes_and_counters(build):
     assert "count/add_chunk/spill" in t and "count/finish/pull/decode" in t
     assert t["#d2h_bytes"] > 0 and t["#h2d_bytes"] > 0
     assert "#d2h_bytes" in err and "count/finish/pull/merge" in err
+    # the histogram counted once; the two arrays' bytes written
+    assert t["#hist_counted"] == 1 and "#hist_sorted" not in t
+    files = build["on"][2]
+    assert t["#write_bytes"] == sum(np.load(io.BytesIO(files[s])).nbytes
+                                    for s in (".edges-lo", ".counts"))
+    assert "#hist_counted" in err and "#write_bytes" in err
 
 
 def test_build_graph_keeps_older_paths_and_phase_keys(build):
