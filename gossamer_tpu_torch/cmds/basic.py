@@ -21,7 +21,11 @@ from ..utils.logging import Timer
 # a flush of n windows into a resident spectrum of S lanes peaks at no
 # more than WIDE_KEY_BYTES * S + WIDE_WINDOW_BYTES * n (24 B of resident
 # lanes and up to 114 B of merge and stable-sort workspace a key; up to
-# 146 B of k-merize and merge a window, and the window's code).
+# 146 B of k-merize and merge a window, and the window's code).  The
+# finish's expansion on the card takes its own peak, about 243 B a live
+# key beside the 24 B a lane of the resident spectrum (an H100 at rho 56,
+# -B 16: 10.1 GB for 35.0M live keys in 67.1M lanes): inside -B while the
+# live keys stay below (-B - 24 B x cap) / 243 B.
 WIDE_KEY_BYTES = 138
 WIDE_WINDOW_BYTES = 147
 FLUSH_CHUNKS = (8, 4, 2, 1)
@@ -39,7 +43,10 @@ def _chunk_opts(p):
                         "chunks, the most that leave room for twice their "
                         "windows; where one chunk's flush does not fit, the "
                         "spectrum gets twice a chunk's windows and the peak "
-                        "passes -B. With --num-devices above 1 the cap is "
+                        "passes -B. The finish expands the live keys on the "
+                        "card at about 243 B a key beside the resident "
+                        "spectrum, inside -B while they stay below about half "
+                        "the cap. With --num-devices above 1 the cap is "
                         "the 48 B a key one for every k, split evenly over "
                         "the shards, which never spill")
     p.add_argument("--chunk-size", type=int, default=1 << 22,

@@ -26,18 +26,23 @@ wide key travels in two forms:
 
 ``torch.sort`` has one key, so :func:`sort_lanes` is a stable sort by ``lo``
 followed by a stable sort by ``hi`` with everything else gathered.
+
+Profile (``utils/profile.py``): scope ``wide/flush`` around each batch
+step, ``sync`` around each read of a ``live``, ``spill`` around a spill
+(counter ``#spill_runs``, one a spilled run), and the finish's phases
+``flush_tail``, ``pull`` and ``expand`` as scopes; every pull to the host
+goes through ``engine._to_host`` (``to_host``, ``#d2h_bytes``).
 """
 
 from __future__ import annotations
-
-import time
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ..utils import profile
 from .canon import FNV_OFFSET, M32, MODES, _fnv_step, _rev2_u32
-from .engine import _sync, _to_device
+from .engine import _read_live, _sync, _to_device, _to_host
 from .kmerize import windows_without
 
 SENT = (1 << 63) - 1
@@ -72,8 +77,7 @@ def lanes_from_u64(lo: np.ndarray, hi: np.ndarray, device: torch.device):
 
 def u64_from_lanes(hi: torch.Tensor, lo: torch.Tensor):
     """Lanes -> host key planes ``(lo, hi)`` as numpy uint64."""
-    return ((lo ^ TOP).cpu().numpy().view(np.uint64),
-            hi.cpu().numpy().view(np.uint64))
+    return _to_host(lo ^ TOP).view(np.uint64), _to_host(hi).view(np.uint64)
 
 
 def sort_lanes(hi: torch.Tensor, lo: torch.Tensor, *payloads: torch.Tensor):
@@ -368,8 +372,9 @@ class SpectrumEngineWide:
             self.spec = empty_spec_wide(self.cap, self.device)
         elif self.spec is None:
             self.spec = empty_spec_wide(self.cap, self.device)
-        *spec, live = batch_step_wide(codes, *self.spec, self.rho, self.mode,
-                                      self.cap)
+        with profile.context("wide/flush"):
+            *spec, live = batch_step_wide(codes, *self.spec, self.rho,
+                                          self.mode, self.cap)
         self.spec = tuple(spec)
         self.live_scalars.append(live)
         if final:
@@ -378,7 +383,7 @@ class SpectrumEngineWide:
         bound = self._checked_live + self._lanes_since_check
         next_lanes = self.batch * self.chunk
         if bound + next_lanes > self.cap:
-            self._checked_live = int(live)  # device sync
+            self._checked_live = _read_live(live)
             self._lanes_since_check = 0
             if self._checked_live > self.cap:
                 raise RuntimeError(
@@ -400,24 +405,26 @@ class SpectrumEngineWide:
         """The first ``n_out`` lanes -> host ``(lo u64, hi u64, c i64)``."""
         hi, lo, c = spec
         lo_u, hi_u = u64_from_lanes(hi[:n_out], lo[:n_out])
-        return lo_u, hi_u, c[:n_out].cpu().numpy()
+        return lo_u, hi_u, _to_host(c[:n_out])
 
     def _live(self) -> int:
-        n_out = int(self.live_scalars[-1]) if self.live_scalars else 0
+        n_out = _read_live(self.live_scalars[-1]) if self.live_scalars else 0
         self._check_live()
         return n_out
 
     def _spill_to_host(self) -> None:
         from ..io.native import NativeUnavailable, encode_spill_run128
 
-        n_out = self._live()
-        lo, hi, c = self._pull(self.spec, n_out)
-        try:
-            self.host_runs.append(("eac128", encode_spill_run128(lo, hi, c),
-                                   n_out))
-        except NativeUnavailable:
-            self.host_runs.append(("raw", (lo, hi, c), n_out))
+        with profile.context("spill"):
+            n_out = self._live()
+            lo, hi, c = self._pull(self.spec, n_out)
+            try:
+                self.host_runs.append(("eac128",
+                                       encode_spill_run128(lo, hi, c), n_out))
+            except NativeUnavailable:
+                self.host_runs.append(("raw", (lo, hi, c), n_out))
         self.spills += 1
+        profile.count("spill_runs", 1)
         if self.on_spill is not None:
             self.on_spill(self.spills, n_out)
         self.spec = empty_spec_wide(self.cap, self.device)
@@ -428,7 +435,8 @@ class SpectrumEngineWide:
     def _check_live(self) -> None:
         if not self.live_scalars:
             return
-        max_live = int(torch.stack(self.live_scalars).max())
+        with profile.context("sync"):
+            max_live = int(torch.stack(self.live_scalars).max())
         if max_live > self.cap:
             raise RuntimeError(
                 f"spectrum working set ({max_live}) exceeded cap "
@@ -459,36 +467,41 @@ class SpectrumEngineWide:
     def finish_expanded(self):
         """Finish and expand to the symmetric fwd+rc edge spectrum
         (build-graph semantics; mode 'value'): on the device when nothing
-        spilled, on the host over the merged runs otherwise."""
-        t0 = time.perf_counter()
-        self._flush(final=True)
-        _sync(self.device)
-        self.phases = {"flush_tail": time.perf_counter() - t0}
+        spilled, over the live lanes only, on the host over the merged runs
+        otherwise.  The phases' seconds are their scopes' (one clock reading
+        each): ``flush_tail`` (the final flush), ``expand`` and ``pull``
+        (the copy to the host; on the host side, the merges before the
+        expansion)."""
+        with profile.context("flush_tail", clock=True) as tail:
+            self._flush(final=True)
+            _sync(self.device)
+        self.phases = {"flush_tail": tail.seconds}
         if self.spec is None:
             z = np.zeros(0, np.uint64)
             return z, z.copy(), np.zeros(0, np.int64)
         if self.host_runs:
             from ..core import kmer as K
 
-            t0 = time.perf_counter()
-            lo, hi, c = self._merged_host()
-            self.phases["pull"] = time.perf_counter() - t0
-            t0 = time.perf_counter()
-            rlo, rhi = K.reverse_complement(lo, hi, self.rho)
-            pal = (rlo == lo) & (rhi == hi)
-            out_lo = np.concatenate([lo, rlo[~pal]])
-            out_hi = np.concatenate([hi, rhi[~pal]])
-            out_c = np.concatenate([np.where(pal, c * 2, c), c[~pal]])
-            order = np.lexsort((out_lo, out_hi))
-            out = out_lo[order], out_hi[order], out_c[order]
-            self.phases["expand"] = time.perf_counter() - t0
+            with profile.context("pull", clock=True) as pull:
+                lo, hi, c = self._merged_host()
+            self.phases["pull"] = pull.seconds
+            with profile.context("expand", clock=True) as expand:
+                rlo, rhi = K.reverse_complement(lo, hi, self.rho)
+                pal = (rlo == lo) & (rhi == hi)
+                out_lo = np.concatenate([lo, rlo[~pal]])
+                out_hi = np.concatenate([hi, rhi[~pal]])
+                out_c = np.concatenate([np.where(pal, c * 2, c), c[~pal]])
+                order = np.lexsort((out_lo, out_hi))
+                out = out_lo[order], out_hi[order], out_c[order]
+            self.phases["expand"] = expand.seconds
             return out
-        t0 = time.perf_counter()
-        self._check_live()
-        *spec, live = expand_step_wide(*self.spec, self.rho)
-        n_out = int(live)
-        self.phases["expand"] = time.perf_counter() - t0
-        t0 = time.perf_counter()
-        out = self._pull(spec, n_out)
-        self.phases["pull"] = time.perf_counter() - t0
+        with profile.context("expand", clock=True) as expand:
+            n_live = self._live()
+            *spec, live = expand_step_wide(*(t[:n_live] for t in self.spec),
+                                           self.rho)
+            n_out = _read_live(live)
+        self.phases["expand"] = expand.seconds
+        with profile.context("pull", clock=True) as pull:
+            out = self._pull(spec, n_out)
+        self.phases["pull"] = pull.seconds
         return out

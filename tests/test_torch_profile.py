@@ -261,3 +261,60 @@ def test_classify_files_identical_on_and_off(classify):
     assert on[0] == off[0]  # the statistics
     assert len(on[2]) == 5 and on[2] == off[2]
     assert sum(len(v) for v in on[2].values()) > 0
+
+
+# ------------------------------------------------------------ wide count
+@pytest.fixture(scope="module", params=[(8192, 1 << 20), (1024, 1 << 14)],
+                ids=["unspilled", "spilled"])
+def wide(request):
+    """A profiled wide count (rho 56) of 300 random reads: in flushes whose
+    first cap holds every class, or in small flushes under a small cap,
+    which spill."""
+    from gossamer_tpu_torch.io.readers import Read
+    from gossamer_tpu_torch.io.stream import flat_code_chunks
+    from gossamer_tpu_torch.ops.engine_wide import SpectrumEngineWide
+
+    chunk, cap = request.param
+    rng = np.random.default_rng(56)
+    reads = [Read(str(i), ACGT[rng.integers(0, 4, 150)].tobytes())
+             for i in range(300)]
+    spilled = []
+    eng = SpectrumEngineWide(56, "value", chunk, torch.device("cpu"), batch=4,
+                             cap=cap, on_spill=lambda i, n: spilled.append(n))
+    profile.reset()
+    profile.enable()
+    try:
+        for codes in flat_code_chunks(reads, 56, chunk=chunk):
+            eng.add_chunk(codes)
+        out = eng.finish_expanded()
+    finally:
+        profile.enable(False)
+    totals = profile.totals()
+    profile.reset()
+    return eng, out, spilled, totals
+
+
+def test_wide_count_scopes_and_counters(wide):
+    eng, out, spilled, t = wide
+    for label in ("wide/flush", "sync", "flush_tail", "expand", "pull", "to_host"):
+        assert any(p == label or p.endswith("/" + label) for p in t), label
+    assert "flush_tail/wide/flush" in t  # the final flush under the finish
+    assert t.get("#spill_runs", 0) == eng.spills == len(spilled)
+    assert (eng.spills > 0) == (eng.req_cap == 1 << 14)
+    if eng.spills:
+        assert "spill" in t
+        # each spilled run and the live lanes at the finish: 24 B a lane
+        final = int(eng.live_scalars[-1])
+        assert t["#d2h_bytes"] == 24 * (sum(spilled) + final)
+    else:  # the expanded spectrum's three planes
+        assert t["#d2h_bytes"] == sum(a.nbytes for a in out)
+    assert len(out[0]) == 2 * 300 * (150 - 56 + 1)  # random reads: all distinct
+
+
+def test_wide_phases_are_the_scopes_readings(wide):
+    eng, _out, _spilled, t = wide
+    keys = ["flush_tail", "pull", "expand"] if eng.spills else \
+        ["flush_tail", "expand", "pull"]
+    assert list(eng.phases) == keys
+    for key in keys:
+        assert eng.phases[key] == t[key]
