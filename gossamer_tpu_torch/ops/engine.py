@@ -33,7 +33,8 @@ the same steps run on the host in numpy.  :attr:`SpectrumEngine.
 finish_log` says where each step ran.  A spectrum pulled to the host (a
 spill, a finish on the host) travels delta-packed, with its counts packed
 into the keys' unused high bits or exact, by the JAX engine's rule
-(:meth:`SpectrumEngine._pull_planes`).
+(:meth:`SpectrumEngine._pull_planes`); the planes of one pull from a card
+land in one page-locked block, the host waiting once (:func:`_planes_to_host`).
 
 The early pull (``early_pull_flush``, the JAX engine's): after that flush
 the keys of the spectrum are delta-packed on the device and copied to
@@ -245,16 +246,55 @@ def _run_to_device(lo: np.ndarray, c: np.ndarray, device: torch.device):
             _to_device(np.ascontiguousarray(c, np.int64), device))
 
 
-def _to_host(t: torch.Tensor) -> np.ndarray:
-    """A tensor pulled to host memory (the host waits for the work queued
-    before the copy): scope ``to_host``, counter ``#d2h_bytes``."""
-    profile.count("d2h_bytes", t.nbytes)
+_ALIGN = 64  # bytes: where each carved view of a pinned block starts
+
+
+def _aligned(nbytes: int) -> int:
+    return -(-nbytes // _ALIGN) * _ALIGN
+
+
+def _carve(block: torch.Tensor, tensors) -> list:
+    """Views of the uint8 ``block``, one a tensor, of its dtype and shape,
+    each starting on an ``_ALIGN``-byte boundary."""
+    views, off = [], 0
+    for t in tensors:
+        views.append(block[off:off + t.nbytes].view(t.dtype).view(t.shape))
+        off += _aligned(t.nbytes)
+    return views
+
+
+def _planes_to_host(*tensors: torch.Tensor) -> list:
+    """Tensors pulled to host memory, the host waiting once for the work
+    queued before the copies: scope ``to_host``, counter ``#d2h_bytes``.
+
+    From a CUDA device the copies land in one page-locked block of torch's
+    caching host allocator, carved by :func:`_carve` (counter
+    ``#d2h_pinned_bytes``).  Each array's base is its view of the block,
+    so the block goes back to the cache only when the last array is gone.
+    CPU tensors come back as ``.numpy()``."""
+    for t in tensors:
+        profile.count("d2h_bytes", t.nbytes)
     with profile.context("to_host"):
-        return t.cpu().numpy()
+        if tensors[0].device.type != "cuda":
+            return [t.cpu().numpy() for t in tensors]
+        size = sum(_aligned(t.nbytes) for t in tensors)
+        block = torch.empty(size, dtype=torch.uint8, pin_memory=True)
+        dst = _carve(block, tensors)
+        for d, t in zip(dst, tensors):
+            profile.count("d2h_pinned_bytes", t.nbytes)
+            d.copy_(t, non_blocking=True)
+        torch.cuda.current_stream(tensors[0].device).synchronize()
+        return [d.numpy() for d in dst]
+
+
+def _to_host(t: torch.Tensor) -> np.ndarray:
+    """One tensor pulled to host memory by :func:`_planes_to_host`."""
+    return _planes_to_host(t)[0]
 
 
 def _run_to_host(keys: torch.Tensor, counts: torch.Tensor):
-    return _to_host(keys).view(np.uint64), _to_host(counts)
+    k, c = _planes_to_host(keys, counts)
+    return k.view(np.uint64), c
 
 
 def _merge_all(runs: list, merge, log: list, side: str):
@@ -831,8 +871,8 @@ class SpectrumEngine:
         l1_bits = max(0, 2 * self.rho - 32)
         if 32 - l1_bits >= 8:
             sat = (1 << (32 - l1_bits)) - 1
-            p1, l0 = (_to_host(t).view(np.uint32)
-                      for t in _slice_pieces_packed(keys, counts, l1_bits))
+            p1, l0 = (a.view(np.uint32) for a in _planes_to_host(
+                *_slice_pieces_packed(keys, counts, l1_bits)))
             l1 = p1 & np.uint32((1 << l1_bits) - 1)
             c = (p1 >> np.uint32(l1_bits)).astype(np.int64)
             lo = (l1.astype(np.uint64) << np.uint64(32)) | l0
@@ -843,15 +883,14 @@ class SpectrumEngine:
             else:
                 self.pulls.append(f"{n_out:,} keys: packed counts")
         else:
-            lo = _to_host(keys).view(np.uint64)
-            c = _to_host(counts)
+            lo, c = _run_to_host(keys, counts)
             self.pulls.append(f"{n_out:,} keys: exact")
         return lo, np.zeros_like(lo), c
 
     def _pull_delta(self, spec, n_out: int):
         """The delta-packed pull of the first ``n_out`` lanes; None when
         the exceptions pass ``_EXC_CAP``."""
-        d, cpack, exc, n_exc = (_to_host(t) for t in _delta_pack(
+        d, cpack, exc, n_exc = _planes_to_host(*_delta_pack(
             spec[0][:n_out], spec[1][:n_out]))
         n_exc = int(n_exc)
         if n_exc > _EXC_CAP:

@@ -31,7 +31,8 @@ Profile (``utils/profile.py``): scope ``wide/flush`` around each batch
 step, ``sync`` around each read of a ``live``, ``spill`` around a spill
 (counter ``#spill_runs``, one a spilled run), and the finish's phases
 ``flush_tail``, ``pull`` and ``expand`` as scopes; every pull to the host
-goes through ``engine._to_host`` (``to_host``, ``#d2h_bytes``).
+goes through ``engine._planes_to_host`` (``to_host``, ``#d2h_bytes``,
+``#d2h_pinned_bytes``): a spectrum's planes in one pull.
 """
 
 from __future__ import annotations
@@ -42,7 +43,7 @@ import torch.nn.functional as F
 
 from ..utils import profile
 from .canon import FNV_OFFSET, M32, MODES, _fnv_step, _rev2_u32
-from .engine import _read_live, _sync, _to_device, _to_host
+from .engine import _planes_to_host, _read_live, _sync, _to_device
 from .kmerize import windows_without
 
 SENT = (1 << 63) - 1
@@ -75,9 +76,11 @@ def lanes_from_u64(lo: np.ndarray, hi: np.ndarray, device: torch.device):
             torch.from_numpy(lo.view(np.int64)).to(device))
 
 
-def u64_from_lanes(hi: torch.Tensor, lo: torch.Tensor):
-    """Lanes -> host key planes ``(lo, hi)`` as numpy uint64."""
-    return _to_host(lo ^ TOP).view(np.uint64), _to_host(hi).view(np.uint64)
+def u64_from_lanes(hi: torch.Tensor, lo: torch.Tensor, *payloads):
+    """Lanes -> host key planes ``(lo, hi)`` as numpy uint64, then each
+    payload as it is, all in one pull."""
+    lo_u, hi_u, *rest = _planes_to_host(lo ^ TOP, hi, *payloads)
+    return lo_u.view(np.uint64), hi_u.view(np.uint64), *rest
 
 
 def sort_lanes(hi: torch.Tensor, lo: torch.Tensor, *payloads: torch.Tensor):
@@ -403,9 +406,7 @@ class SpectrumEngineWide:
 
     def _pull(self, spec, n_out: int):
         """The first ``n_out`` lanes -> host ``(lo u64, hi u64, c i64)``."""
-        hi, lo, c = spec
-        lo_u, hi_u = u64_from_lanes(hi[:n_out], lo[:n_out])
-        return lo_u, hi_u, _to_host(c[:n_out])
+        return u64_from_lanes(*(t[:n_out] for t in spec))
 
     def _live(self) -> int:
         n_out = _read_live(self.live_scalars[-1]) if self.live_scalars else 0

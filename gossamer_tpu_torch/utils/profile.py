@@ -10,7 +10,9 @@ range named by its path, so a ``torch.profiler`` trace holds the program's
 scopes on the same clock as the device's kernels and copies (and ``nsys``
 under ``torch.autograd.profiler.emit_nvtx`` shows them as NVTX ranges).
 Counters (:func:`count`) live in the same :func:`totals` mapping under keys
-that begin with ``#``, which no scope path does.  Per-item timing
+that begin with ``#``, which no scope path does: among them the copies'
+bytes, ``#h2d_bytes`` and ``#d2h_bytes``, and ``#d2h_pinned_bytes``, the
+part of ``#d2h_bytes`` that landed in page-locked memory.  Per-item timing
 (:func:`iterate`) adds seconds to a path but opens no range.
 While profiling is off, a scope costs one flag check and records nothing.
 """
