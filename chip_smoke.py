@@ -2,24 +2,21 @@
 """Smoke run of the PyTorch port on one CUDA card: ``goss build-graph`` (narrow
 and wide keys), the assembler from that graph to contigs and to a supergraph,
 the ``gossple`` pipeline end to end, ``xenome index`` + ``classify`` (narrow
-and wide), the two-sort periodic classify engine, ``electus index`` +
-``classify``, the taxonomy commands, the long tail of ``goss`` (set algebra,
-read and graph utilities, variants, fix-reads, the supergraph exports, the
-reference's binary format), ``translucent`` and ``espresso``, and both
-hand-written kernels.
+and wide), ``electus index`` + ``classify``, the taxonomy commands, the
+long tail of ``goss`` (set algebra, read and graph utilities, variants,
+fix-reads, the supergraph exports, the reference's binary format),
+``translucent`` and ``espresso``, and both hand-written kernels.
 
     python3 chip_smoke.py
     python3 chip_smoke.py --wide-memory   # what sizes -B for wide keys
-    python3 chip_smoke.py --routes        # build-graph -k 25, engine routes,
-                                          # the early pull
+    python3 chip_smoke.py --routes        # build-graph -k 25, engine routes
 
 ``--wide-memory`` runs only this: the peak device memory of one wide
 k-merize and one wide flush at 1, 2, 4 and 8 chunks into resident spectra
 of 2^22, 2^24 and 44,739,242 lanes, then ``build-graph -k 55`` of the
 read set sized by ``-B 2`` now and with the cap it had before, in turns
 (spills, wall, peak device memory).  ``--routes`` runs only the kernels'
-builds, build-graph -k 25 (4.), the engine routes (4b.) and the early
-pull (4c.).
+builds, build-graph -k 25 (4.) and the engine routes (4b.).
 
 1. Prints the card's name and power limit (nvidia-smi) and the versions.
 2. Builds the port's native code from this checkout, all compilers started
@@ -54,35 +51,13 @@ pull (4c.).
 4b. Engine routes, each counted on the card with the fold kernel: raw codes
    (``build-graph -k 25 --chunk-size 4194303``: not a multiple of 16, so
    ``native_flat_chunks`` and ``add_chunk``) with files == 4.'s; the packed
-   route through the engine, raw chunks of 2^20 windows with several spills
-   (the whole finish on the card, its peak device memory within 48 B a
-   lane of twice the runs' lanes) and the sparse route
-   (``pack_chunk_sparse`` of the raw chunks) == 4.'s graph; the periodic
-   route (period 101) on the N-free reads == the packed route on the same
-   stream.  Driven directly, as no path of the port calls them:
-   ``batch_steps_fold_packed_scan`` (4 batches a call) == the canonical
-   spectrum, ``expand_step`` of the canonical spectrum at the CLI's cap ==
-   4.'s graph and ``spectra_merge`` of two halves' spectra == the canonical
-   spectrum, each against the plain fold at its shape.  The merge kernel
+   route through the engine and raw chunks of 2^20 windows with several
+   spills (the whole finish on the card, its peak device memory within 48 B
+   a lane of twice the runs' lanes) == 4.'s graph.  The merge kernel
    against its plain version and the library at the shapes of the finish
    on the card (each merge of spilled runs, the expansion).  In 4. the
    finish must run on the card: the log names the card for each merge and
-   the expansion, and ``merge_sorted`` launches once for each.  The early
-   pull's fallback: the periodic route again with ``early_pull_flush=1``
-   (no hint, no spills, the CLI's cap): the reads' errors leave more new
-   keys after the snapshot than ``_EXC_CAP``, so the reconciled pull stops,
-   says why, and the finish runs as without it: == the periodic route.
-4c. The early pull at ``bench.py``'s count: its stream (seed 42, a 4.6 Mbp
-   genome, 30 passes of error-free 100 bp reads, period 101, 34 periodic
-   chunks of 2^22), cap 2^23 without spills, flushes of 6 + 14 + 14
-   chunks, ``early_pull_flush=1`` with ``expected_distinct``,
-   ``finish_expanded``: the reconciled route with the snapshot's
-   expansion order, at most ``_EXC_CAP`` new keys, 3 ``merge_fold`` and no
-   ``merge_sorted`` launches, == the same engine without the early pull
-   (its finish on the side the cap allows: twice its 4.6M keys pass 2^23
-   lanes, so the host), the counts summing to twice the stream's windows;
-   then both in turns, 3 rounds each (phases, add loop, count wall, peak
-   device memory).
+   the expansion, and ``merge_sorted`` launches once for each.
 5. Wide build-graph: the same read set, ``build-graph -k 55`` (112-bit
    keys, the wide engine: PyTorch ops, no kernel launch).  The same checks
    with 128-bit keys as two uint64; its peak device memory must stay within
@@ -116,17 +91,14 @@ pull (4c.).
    ``xenome index -K 25`` and ``xenome classify``.  The index must equal a
    numpy oracle, the device near-k-mer pass must equal the host version on
    200 kbp prefixes, and the first 20k reads' classes a per-read oracle.
-8. periodic2: the first 200,000 N-free reads through
-   ``classify_periodic_stream2`` and ``classify_codes_device`` on the K 25
-   index, in turns: equal classes, reads/s of each.
-9. Wide xenome: the same references and reads, ``xenome index -K 40`` and
+8. Wide xenome: the same references and reads, ``xenome index -K 40`` and
    ``classify`` (the wide classifier: PyTorch ops, no kernel launch), the
    same oracles with 128-bit keys.
-10. electus: four seeded 4.6 Mbp references (the two above and two more),
+9. electus: four seeded 4.6 Mbp references (the two above and two more),
    ``electus index -K 25`` and ``electus classify`` of 500,000 reads at
    ``--ref-threshold`` 1 and 2; the matched counts must agree with the files
    and the first 20k reads' verdicts with a numpy oracle.
-11. taxonomy: the four references as four species under two genera (the two
+10. taxonomy: the four references as four species under two genera (the two
     that share the segment under one), ``build-kmer-set -k 25`` of all four,
     ``annotate-kmers``, ``classify-reads`` of the electus phase's 500,000
     reads: the set and every k-mer's annotation must equal a numpy LCA
@@ -134,7 +106,7 @@ pull (4c.).
     drawn from the shared segment must land on the genus, ``merge_sorted``
     must launch once a batch, and ``join_ranks_batch`` on the card must equal
     the same call on CPU tensors.
-12. long tail, on what the earlier phases left: ``build-kmer-set -k 25`` of
+11. long tail, on what the earlier phases left: ``build-kmer-set -k 25`` of
     the four references (== their numpy sets), ``merge-kmer-sets``,
     ``intersect-kmer-sets``, ``subtract-kmer-set`` of the first two (==
     numpy's merge of the sorted sets),
@@ -156,7 +128,7 @@ pull (4c.).
     pop-bubbles, assemble on pairs of a seeded 100-gene transcriptome
     (isoforms recovered); ``espresso`` single, multi, sparse-single, query
     (== numpy and per-read oracles) and similarity.
-13. several devices (``parallel/*``) on a mesh of 4 shards, all on the one
+12. several devices (``parallel/*``) on a mesh of 4 shards, all on the one
     card (the collectives are copies within it), on what the earlier phases
     left: the 4-shard count of the whole read set (``count_rho_mers_files(...,
     mesh=...)``, the fold kernel per shard) == build-graph's files byte for
@@ -170,7 +142,7 @@ pull (4c.).
     2`` exits non-zero naming the cards visible when there is one card (and
     equals the head's graph when there are two); each kernel once more at
     its per-shard shape.
-14. Prints for each kernel its bound (every input byte read once and every
+13. Prints for each kernel its bound (every input byte read once and every
     output byte written once at the card's memory rate), its time, its
     share of the bound and its launches on each path, then one JSON line
     with both kernels, then ``{"ok": true, ...}``.
@@ -956,89 +928,50 @@ SPILL_CHUNK = 1 << 20  # the several-spills engine: the cap grows from 2^21
 SPILL_CAP = 1 << 28  # wide enough that the finish runs on the card
 
 
-def fold_timed(a, ac, b, bc, cap: int, what: str, smi: str) -> dict:
-    """merge_fold on the spectra (a, ac) and (b, bc): the kernel == its
-    plain version, both timed with CUDA events (runs in turns, the least
-    kept), beside the bound.  No PyTorch call computes it."""
-    from gossamer_tpu_torch.ops import fold
-
-    got, _want, err = fold_pair(a, ac, b, bc, cap)
-    check(err == 0, f"merge_fold kernel == plain at {what}: A {a.numel()} "
-                    f"lanes, B {b.numel()} lanes, cap {cap}, live "
-                    f"{int(got[2])}")
-    del got, _want
-    plain = [time_ms(lambda: fold.merge_fold_reference(a, ac, b, bc, cap))]
-    kern = [time_ms(lambda: fold.merge_fold(a, ac, b, bc, cap))
-            for _ in range(2)]
-    plain.append(time_ms(lambda: fold.merge_fold_reference(a, ac, b, bc, cap)))
-    ms, plain_ms = min(kern), min(plain)
-    print(f"merge_fold at A={a.numel()} B={b.numel()} lanes, cap {cap} "
-          f"({what}) on {smi}: kernel {ms:.4f} ms (runs {kern}), plain "
-          f"{plain_ms:.3f} ms (runs {plain})", flush=True)
-    return {"shape": f"A {a.numel()} lanes, B {b.numel()} lanes, cap {cap} "
-                     f"({what})", "max_abs_err": err, "ms": ms,
-            "plain_ms": plain_ms, **fold_bound(a.numel(), b.numel(), cap),
-            "library_ms": None}
-
-
-def routes_phase(dev, smi: str, tmp: str, reads, fasta: str, rho: int):
-    """The narrow engine's other routes on the ``-k 25`` read set, each
+def routes_phase(dev, smi: str, tmp: str, fasta: str, rho: int):
+    """The narrow engine's two inputs on the ``-k 25`` read set, each
     counted on the card: ``build-graph --chunk-size 4194303`` (raw codes
     through ``native_flat_chunks``) == the k-25 cell's files; the packed
-    route through the engine (the merge kernel's inputs in the finish kept),
-    raw chunks of 2^20 with several spills (the finish's peak device memory
-    read) and the sparse route (``pack_chunk_sparse`` of the raw chunks) ==
-    its graph; the periodic route (period 101) on the N-free reads == the
-    packed route on the same stream; driven directly:
-    ``batch_steps_fold_packed_scan`` == the canonical spectrum,
-    ``expand_step`` of the canonical spectrum at the CLI's cap == the graph,
-    ``spectra_merge`` of two halves' spectra == the canonical spectrum.
-    -> (merge_fold launches per path, merge_sorted launches per path, the
-    merge_fold rows at the expand_step and spectra_merge shapes, the
-    merge_sorted rows at the finish's merge and expansion)."""
+    route through the engine (the merge kernel's inputs in the finish kept)
+    and raw chunks of 2^20 with several spills (the finish's peak device
+    memory read) == its graph.  -> (merge_fold launches per path,
+    merge_sorted launches per path, the merge_sorted rows at the finish's
+    merge and expansion)."""
     import torch
 
     from gossamer_tpu_torch.cli.goss import main as goss
     from gossamer_tpu_torch.io.native import (native_flat_chunks,
                                               native_packed_chunks)
-    from gossamer_tpu_torch.io.stream import pack_chunk, pack_chunk_sparse
     from gossamer_tpu_torch.ops import engine as E
     from gossamer_tpu_torch.ops import fold
-    from gossamer_tpu_torch.ops.canon import rc
-    from gossamer_tpu_torch.ops.fold import SENT
 
     g26 = os.path.join(tmp, f"g{rho}")
     want = read_graph(g26)
-    fold_paths, merge_paths, direct = {}, {}, {}
+    fold_paths, merge_paths = {}, {}
 
-    def path(name, fn, *args, on_path=True, **kw):
+    def path(name, fn, *args, **kw):
         """Run one path with the launch counts at 0; it must fold with the
-        kernel.  A function that no path of the port calls (``on_path``
-        False) is driven directly: its launches stay out of the paths'."""
+        kernel."""
         zero_launches()
         t0 = time.perf_counter()
         out = fn(*args, **kw)
         torch.cuda.synchronize(dev)
         wall = time.perf_counter() - t0
         n_fold, n_merge = fold.merge_fold.launches, merge_launches(name)
-        if on_path:
-            fold_paths[name], merge_paths[name] = n_fold, n_merge
-        else:
-            direct[name] = n_fold
+        fold_paths[name], merge_paths[name] = n_fold, n_merge
         check(n_fold > 0, f"{name}: {wall:.3f} s, merge_fold launched "
                           f"{n_fold} times, merge_sorted {n_merge}")
         return out
 
     finish_log = []
 
-    def count(add, chunks, expanded=True, **kw):
-        eng = E.SpectrumEngine(rho, "value", CHUNK, dev, batch=BATCH, cap=CAP,
-                               **kw)
+    def count(chunks):
+        eng = E.SpectrumEngine(rho, "value", CHUNK, dev, batch=BATCH, cap=CAP)
         for item in chunks:
-            getattr(eng, add)(*item)
-        out = eng.finish_expanded() if expanded else eng.finish()
+            eng.add_chunk_packed(*item)
+        out = eng.finish_expanded()
         finish_log[:] = eng.finish_log
-        print(f"  {add}: {eng.spills} spills, {eng._nflush} flushes; finish: "
+        print(f"  add_chunk_packed: {eng.spills} spills; finish: "
               f"{'; '.join(eng.finish_log)}; phases {eng.phases}", flush=True)
         return out
 
@@ -1074,11 +1007,11 @@ def routes_phase(dev, smi: str, tmp: str, reads, fasta: str, rho: int):
 
     E.merge_sorted = keep
     try:
-        got = path("engine, packed chunks", count, "add_chunk_packed", packed)
+        got = path("engine, packed chunks", count, packed)
     finally:
         E.merge_sorted = real
     same_graph(got, "packed route")
-    del got
+    del got, packed
     on_card = [step.split(" keys")[0] for step in finish_log
                if step.endswith(f"on {dev}")]
     check(len(on_card) == len(finish_log) == len(finish_inputs)
@@ -1127,150 +1060,6 @@ def routes_phase(dev, smi: str, tmp: str, reads, fasta: str, rho: int):
     same_graph(path("engine, raw chunks of 2^20 (several spills)", spilled),
                "several spills")
 
-    # sparse invalid positions, from the native raw chunks
-    t0 = time.perf_counter()
-    sparse = [pack_chunk_sparse(c, rho, CHUNK)
-              for c in native_flat_chunks([fasta], rho, chunk=CHUNK,
-                                          threads=4)]
-    check(all(sp is not None for sp in sparse),
-          f"pack_chunk_sparse of {len(sparse)} chunks (at most {CHUNK // 64} "
-          f"invalid codes each) in {time.perf_counter() - t0:.1f} s")
-    same_graph(path("engine, sparse chunks", count, "add_chunk_packed_sparse",
-                    sparse), "sparse route")
-    del sparse
-
-    # the canonical spectrum of the graph
-    keys = torch.from_numpy(want[0].view(np.int64)).to(dev)
-    counts = torch.from_numpy(want[2]).to(dev)
-    r = rc(keys, rho)
-    canon = keys <= r
-    ck = keys[canon]
-    cc = torch.where(keys[canon] == r[canon], counts[canon] // 2,
-                     counts[canon])
-    del r, canon
-
-    # grouped folds: batch_steps_fold_packed_scan, 4 batches a call, the
-    # last group filled with chunks of separators
-    def grouped():
-        F = 4
-        blank = pack_chunk(np.full(CHUNK + rho - 1, 255, np.uint8), rho,
-                           CHUNK)
-        items = packed + [blank] * (-len(packed) % (F * BATCH))
-        s_keys, s_counts = E.empty_spec(CAP, dev)
-        for g in range(0, len(items), F * BATCH):
-            grp = items[g : g + F * BATCH]
-            words = torch.from_numpy(np.stack([w for w, _ in grp])
-                                     .view(np.int32)).to(dev)
-            inval = torch.from_numpy(np.stack([v for _, v in grp])).to(dev)
-            s_keys, s_counts, live = E.batch_steps_fold_packed_scan(
-                words.view(F, BATCH, -1), inval.view(F, BATCH, -1), s_keys,
-                s_counts, rho, "value", CAP, CHUNK)
-        return s_keys, s_counts, int(live)
-
-    g_keys, g_counts, n = path("batch_steps_fold_packed_scan, 4 batches a "
-                               "call", grouped, on_path=False)
-    check(n == ck.numel() and torch.equal(g_keys[:n], ck)
-          and torch.equal(g_counts[:n], cc),
-          f"batch_steps_fold_packed_scan: {n} classes == the canonical "
-          f"spectrum of the graph")
-    del g_keys, g_counts
-
-    # periodic: the N-free reads back to back, a separator after each
-    clean = reads[~(reads == 4).any(axis=1)]
-    period = clean.shape[1] + 1
-    flat = np.full((len(clean), period), 255, np.uint8)
-    flat[:, :-1] = clean
-    flat = flat.reshape(-1)
-    data_len = len(flat)
-    n_chunks = -(-data_len // CHUNK)
-    stream = np.full(n_chunks * CHUNK + rho - 1, 255, np.uint8)
-    stream[: len(flat)] = flat
-    del flat
-    periodic, bitmap = [], []
-    for i in range(n_chunks):
-        p0 = i * CHUNK
-        words, inval = pack_chunk(stream[p0 : p0 + CHUNK + rho - 1], rho,
-                                  CHUNK)
-        nwin = max(0, min(CHUNK, data_len - rho + 1 - p0))
-        periodic.append((words, p0 % period, CHUNK + rho, nwin))
-        bitmap.append((words, inval))
-    del stream
-    got = path("engine, periodic chunks (period 101)", count,
-               "add_chunk_packed_periodic", periodic, expanded=False,
-               period=period)
-    ref = path("engine, packed chunks of the N-free reads", count,
-               "add_chunk_packed", bitmap, expanded=False)
-    n_windows = valid_windows(clean, rho)
-    check(all(np.array_equal(g, w) for g, w in zip(got, ref))
-          and int(got[2].sum()) == n_windows,
-          f"periodic route on {len(clean)} N-free reads: {len(got[0])} "
-          f"classes, {n_windows} windows == the packed route")
-    del bitmap, ref
-
-    # the early pull where the reads' errors leave more new keys after the
-    # snapshot than the reconciled pull takes: its stop, then the finish
-    early = path("early pull (fallback)", count, "add_chunk_packed_periodic",
-                 periodic, expanded=False, period=period, spill=False,
-                 early_pull_flush=1)
-    stop = [step for step in finish_log
-            if step.startswith("reconciled pull stopped")]
-    print(f"  early pull (fallback): route {'; '.join(finish_log)}",
-          flush=True)
-    check(all(np.array_equal(g, w) for g, w in zip(early, got)),
-          f"early pull (fallback): {len(early[0])} classes == the periodic "
-          f"route's")
-    m = re.search(r"n_new ([\d,]+) of", stop[0]) if stop else None
-    check(m is not None and int(m[1].replace(",", "")) > E._EXC_CAP,
-          f"early pull (fallback): the reconciled pull stopped at "
-          f"{m[1] if m else '?'} new keys, more than {E._EXC_CAP:,}")
-    del periodic, got, early
-
-    # expand_step and spectra_merge (no path of the port calls them) on
-    # the canonical spectrum of the graph
-    def spectrum(k, c):
-        s = torch.full((CAP,), SENT, dtype=torch.int64, device=dev)
-        sc = torch.zeros(CAP, dtype=torch.int64, device=dev)
-        s[: k.numel()] = k
-        sc[: k.numel()] = c
-        return s, sc
-
-    a, ac = spectrum(ck, cc)
-    out_k, out_c, live = path("expand_step", E.expand_step, a, ac, rho,
-                              on_path=False)
-    n = keys.numel()
-    check(int(live) == n and torch.equal(out_k[:n], keys)
-          and torch.equal(out_c[:n], counts),
-          f"expand_step of {ck.numel()} classes in {CAP} lanes: {n} edges "
-          f"== the graph")
-    del out_k, out_c
-    b = torch.where(a == SENT, SENT, rc(a, rho))
-    b, order = torch.sort(b)
-    fold_rows = [fold_timed(a, ac, b, ac[order], 2 * CAP,
-                            "expand_step of the k-25 spectrum", smi)]
-    fold_rows[-1]["paths"] = (f"none: driven directly, "
-                              f"{direct['expand_step']} launch")
-    del a, ac, b, order
-
-    half = len(packed) // 2
-    sa = spectrum(*(torch.from_numpy(x.view(np.int64)).to(dev) for x in
-                    count("add_chunk_packed", packed[:half], False)[::2]))
-    sb = spectrum(*(torch.from_numpy(x.view(np.int64)).to(dev) for x in
-                    count("add_chunk_packed", packed[half:], False)[::2]))
-    del packed
-    out_k, out_c, live = path("spectra_merge", E.spectra_merge, *sa, *sb, CAP,
-                              on_path=False)
-    n = ck.numel()
-    check(int(live) == n and torch.equal(out_k[:n], ck)
-          and torch.equal(out_c[:n], cc),
-          f"spectra_merge of the two halves' spectra: {n} classes == the "
-          f"canonical spectrum of the graph")
-    del out_k, out_c, keys, counts, ck, cc
-    fold_rows.append(fold_timed(*sa, *sb, CAP, "spectra_merge of two halves' "
-                                "spectra", smi))
-    fold_rows[-1]["paths"] = (f"none: driven directly, "
-                              f"{direct['spectra_merge']} launch")
-    del sa, sb
-
     # the merge kernel at the finish's shapes in the packed route
     merge_rows = []
     for step, (args, n) in zip(on_card, finish_inputs):
@@ -1279,136 +1068,7 @@ def routes_phase(dev, smi: str, tmp: str, reads, fasta: str, rho: int):
         check(err == 0, f"merge_sorted kernel == plain at {what}")
         merge_rows.append({**merge_timed(*args, what, smi), "max_abs_err": err,
                            "paths": {"engine, packed chunks": n}})
-    print(f"  driven directly, merge_fold launches: {direct}", flush=True)
-    return fold_paths, merge_paths, fold_rows, merge_rows
-
-
-# ------------------------------------------- early pull, bench.py's count
-BENCH_GENOME_MB = 4.6  # bench.py's counting configuration
-BENCH_PASSES = 30
-BENCH_READ_LEN = 100
-BENCH_CAP = 1 << 23
-BENCH_BATCH, BENCH_FIRST = 14, 6  # 34 chunks as 6 + 14 + 14
-
-
-def synth_stream(genome_mb: float, coverage: int, read_len: int, rho: int,
-                 chunk: int):
-    """``bench.py``'s ``synth_stream`` (numpy only): ``coverage`` passes of
-    error-free ``read_len`` reads tiling a seeded random genome from a
-    random offset, each read followed by one 255 separator -> (flat codes,
-    chunks, the passes' starts, the end of the data, the reads)."""
-    rng = np.random.default_rng(42)
-    glen = int(genome_mb * 1e6)
-    genome = rng.integers(0, 4, size=glen, dtype=np.uint8)
-    total = coverage * (glen // read_len) * (read_len + 1)
-    n_chunks = -(-total // chunk)
-    flat = np.full(n_chunks * chunk + rho - 1, 255, np.uint8)
-    pos, n_reads, pass_starts = 0, 0, []
-    for _ in range(coverage):
-        off = int(rng.integers(0, read_len))
-        rows = (glen - off) // read_len
-        pass_starts.append(pos)
-        m = flat[pos : pos + rows * (read_len + 1)].reshape(rows, read_len + 1)
-        m[:, :read_len] = genome[off : off + rows * read_len].reshape(
-            rows, read_len)
-        pos += rows * (read_len + 1)
-        n_reads += rows
-    return flat, n_chunks, pass_starts, pos, n_reads
-
-
-def bench_chunks(rho: int):
-    """``bench.py``'s periodic chunks of :func:`synth_stream` -> (chunks
-    ``(words, phase, bound, windows)``, the stream's valid windows: each
-    read's ``read_len - rho + 1``)."""
-    from gossamer_tpu_torch.io.stream import pack_chunk
-
-    flat, n_chunks, starts, data_end, n_reads = synth_stream(
-        BENCH_GENOME_MB, BENCH_PASSES, BENCH_READ_LEN, rho, CHUNK)
-    period = BENCH_READ_LEN + 1
-    chunks = []
-    for i in range(n_chunks):
-        p0 = i * CHUNK
-        words, _ = pack_chunk(flat[p0 : p0 + CHUNK + rho - 1], rho, CHUNK)
-        cur = max(p for p in starts if p <= p0)
-        nxt = [p for p in starts if p > p0]
-        chunks.append((words, (p0 - cur) % period,
-                       (nxt[0] - p0) if nxt else CHUNK + rho,
-                       max(0, min(CHUNK, data_end - rho + 1 - p0))))
-    return chunks, n_reads * (BENCH_READ_LEN - rho + 1)
-
-
-def early_pull_phase(dev, smi: str, rho: int):
-    """``bench.py``'s count (``build_graph_kmers_per_sec``): the periodic
-    chunks into ``cap = 2^23`` without spills, flushes of 6 + 14 + 14
-    chunks, the early pull after the first with ``expected_distinct``,
-    ``finish_expanded``.  It must take the reconciled route with the
-    snapshot's expansion order, few new keys, 3 ``merge_fold`` and no
-    ``merge_sorted`` launches, and give the output of the same engine
-    without the early pull (its finish on the side the cap allows), whose
-    counts sum to twice the stream's windows.  Then both in turns, 3 rounds each:
-    phases, the add loop, the count's wall, peak device memory.  -> (the
-    path's merge_fold launches, its merge_sorted launches)."""
-    import torch
-
-    from gossamer_tpu_torch.ops import engine as E
-    from gossamer_tpu_torch.ops import fold
-
-    t0 = time.perf_counter()
-    chunks, n_windows = bench_chunks(rho)
-    print(f"  bench.py's stream: {len(chunks)} periodic chunks, {n_windows} "
-          f"windows, made in {time.perf_counter() - t0:.1f} s", flush=True)
-
-    def run(early: bool):
-        torch.cuda.synchronize(dev)
-        before = torch.cuda.memory_allocated(dev)
-        torch.cuda.reset_peak_memory_stats(dev)
-        kw = dict(early_pull_flush=1,
-                  expected_distinct=int(BENCH_GENOME_MB * 1.1e6)) if early else {}
-        eng = E.SpectrumEngine(rho, "value", CHUNK, dev, batch=BENCH_BATCH,
-                               first_batch=BENCH_FIRST, cap=BENCH_CAP,
-                               spill=False, period=BENCH_READ_LEN + 1, **kw)
-        t0 = time.perf_counter()
-        for item in chunks:
-            eng.add_chunk_packed_periodic(*item)
-        add = time.perf_counter() - t0
-        out = eng.finish_expanded()
-        wall = time.perf_counter() - t0
-        peak = torch.cuda.max_memory_allocated(dev) - before
-        print(f"  early pull {'on' if early else 'off'}: count {wall:.3f} s, "
-              f"add loop {add:.3f} s, phases "
-              f"{json.dumps(eng.phases)}, "
-              f"peak {peak} B on {smi}; finish: {'; '.join(eng.finish_log)}",
-              flush=True)
-        return out, eng.finish_log
-
-    zero_launches()
-    got, log = run(True)
-    n_fold, n_merge = fold.merge_fold.launches, merge_launches("early pull")
-    want, _ = run(False)
-    rec = [re.match(r"reconciled pull of [\d,]+ keys: n1 ([\d,]+) from the "
-                    r"snapshot, n_new ([\d,]+)$", step) for step in log]
-    rec = [m for m in rec if m]
-    n_new = int(rec[0][2].replace(",", "")) if rec else -1
-    check(rec and log[-1].endswith("on the host: order")
-          and 0 <= n_new <= E._EXC_CAP,
-          f"early pull (bench configuration): the reconciled route, the "
-          f"snapshot's order, n1 {rec[0][1] if rec else '?'} keys, n_new "
-          f"{n_new:,} of at most {E._EXC_CAP:,}")
-    check(n_fold == 3 and n_merge == 0,
-          f"early pull (bench configuration): merge_fold launched {n_fold} "
-          f"times (6 + 14 + 14 chunks), merge_sorted {n_merge}")
-    check(all(np.array_equal(g, w) for g, w in zip(got, want))
-          and int(want[2].sum()) == 2 * n_windows,
-          f"early pull (bench configuration): {len(got[0])} edges == the "
-          f"finish without the early pull, counts summing to 2 x "
-          f"{n_windows} windows")
-    for r in range(3):
-        for early in ((True, False) if r % 2 == 0 else (False, True)):
-            out, _ = run(early)
-            check(all(np.array_equal(g, w) for g, w in zip(out, want)),
-                  f"round {r + 1}, early pull {'on' if early else 'off'}: "
-                  f"the same edges")
-    return n_fold, n_merge
+    return fold_paths, merge_paths, merge_rows
 
 
 def wide_flush_ms(dev, smi: str, rho: int) -> None:
@@ -1796,72 +1456,6 @@ def xenome_phase(dev, smi: str, tmp: str, inp: dict, k: int) -> tuple[int, int]:
           f"device {scope['wait']:.3f}, other (parse, output) {other:.3f}; "
           f"peak device memory {classify_peak / 2**30:.2f} GiB", flush=True)
     return index_launches, classify_launches
-
-
-# ---------------------------------------------------------- periodic2 phase
-def periodic2_phase(dev, smi: str, tmp: str, inp: dict, k: int,
-                    n_reads: int = 200_000) -> int:
-    """The two-sort periodic engine against the engine the xenome CLI runs,
-    on the first ``n_reads`` N-free reads and the K ``k`` index: equal
-    classes; reads/s of each with the host packing inside the timed call
-    and parsing outside.  -> merge_sorted launches."""
-    import torch
-
-    from gossamer_tpu_torch.classify import device as cd
-    from gossamer_tpu_torch.classify.annotated_set import AnnotatedKmerSet
-    from gossamer_tpu_torch.convert import set_from_u64
-    from gossamer_tpu_torch.io.factory import PhysicalFileFactory
-    from gossamer_tpu_torch.io.stream import pack_chunk
-
-    ann = AnnotatedKmerSet.read(os.path.join(tmp, f"idx{k}"),
-                                PhysicalFileFactory())
-    E = cd.encode_set(ann.kset.lo, ann.lhs, ann.rhs)
-    reads = inp["reads"]
-    clean = reads[~(reads == 4).any(axis=1)][:n_reads]
-    L = clean.shape[1]
-    T = L + 1
-    set_E = set_from_u64(E, dev)
-    prepared = cd.prepare_set_value(E, k, dev)
-    window = max(1 << 22, 1 << int(np.ceil(np.log2(len(E) + 1))))
-    per = window // T
-
-    def chunks():
-        for base in range(0, len(clean), per):
-            grp = clean[base : base + per]
-            flat = np.full(window + k - 1, 255, np.uint8)
-            flat[: len(grp) * T].reshape(len(grp), T)[:, :L] = grp
-            yield pack_chunk(flat, k, window)[0], len(grp)
-
-    engines = {
-        "classify_codes_device": lambda: cd.classify_codes_device(
-            list(clean), set_E, k),
-        "classify_periodic_stream2": lambda: cd.classify_periodic_stream2(
-            chunks(), None, k, window, L, device=dev, prepared=prepared),
-    }
-    zero_launches()
-    seconds = {name: [] for name in engines}
-    out = {}
-    for name in (*engines, *reversed(engines)):  # in turns: a, b, b, a
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        out[name] = engines[name]()
-        torch.cuda.synchronize()
-        seconds[name].append(time.perf_counter() - t0)
-    launches = merge_launches("periodic2")
-    a, b = out["classify_codes_device"], out["classify_periodic_stream2"]
-    check(np.array_equal(a, b) and len(a) == len(clean),
-          f"classify_periodic_stream2 == classify_codes_device on "
-          f"{len(clean)} uniform reads (classes "
-          f"{np.bincount(a, minlength=16).tolist()})")
-    check(np.array_equal(a[:20000], blrg_oracle(clean[:20000], ann)),
-          "their first 20000 reads == per-read numpy oracle")
-    check(launches > 0, f"merge_sorted kernel launched {launches} times by "
-                        f"the two engines")
-    for name, s in seconds.items():
-        print(f"{name} (K {k}, window {window}, {len(clean)} reads, packing "
-              f"inside, parsing outside) on {smi}: {min(s):.3f} s -> "
-              f"{len(clean) / min(s):.0f} reads/s (runs {s})", flush=True)
-    return launches
 
 
 # ------------------------------------------------------------ electus phase
@@ -3656,10 +3250,8 @@ def main(argv=None) -> int:
             print(phase("build-graph -k 25", graph_phase, dev, smi, tmp, reads,
                         fasta, RHO), flush=True)
             for out in phase("engine routes -k 25", routes_phase, dev, smi,
-                             tmp, reads, fasta, RHO):
+                             tmp, fasta, RHO):
                 print(json.dumps(out), flush=True)
-        print(phase("early pull, bench.py's count", early_pull_phase, dev,
-                    smi, RHO), flush=True)
         return 0
     check(not argv, f"no arguments, --wide-memory or --routes alone (got "
                     f"{argv})")
@@ -3676,15 +3268,11 @@ def main(argv=None) -> int:
               f"{time.perf_counter() - t0:.1f} s", flush=True)
         fold_paths["build-graph"], merge_paths["build-graph"] = phase(
             "build-graph -k 25", graph_phase, dev, smi, tmp, reads, fasta, RHO)
-        route_fold, route_merge, fold_more, merge_routes = phase(
-            "engine routes -k 25", routes_phase, dev, smi, tmp, reads, fasta,
-            RHO)
+        route_fold, route_merge, merge_routes = phase(
+            "engine routes -k 25", routes_phase, dev, smi, tmp, fasta, RHO)
         fold_paths.update(route_fold)
         merge_paths.update(route_merge)
         merge_more.extend(merge_routes)
-        (fold_paths["early pull (bench configuration)"],
-         merge_paths["early pull (bench configuration)"]) = phase(
-            "early pull, bench.py's count", early_pull_phase, dev, smi, RHO)
         (fold_paths["build-graph -k 55"],
          merge_paths["build-graph -k 55"]) = phase(
             "build-graph -k 55 (wide)", graph_phase, dev, smi, tmp, reads,
@@ -3699,8 +3287,6 @@ def main(argv=None) -> int:
         inp = xenome_inputs(tmp)
         fold_paths["xenome index"], merge_paths["xenome classify"] = phase(
             "xenome -K 25", xenome_phase, dev, smi, tmp, inp, XK)
-        merge_paths["periodic2"] = phase(
-            "periodic2", periodic2_phase, dev, smi, tmp, inp, XK)
         (fold_paths["xenome index -K 40"],
          merge_paths["xenome classify -K 40"]) = phase(
             "xenome -K 40 (wide)", xenome_phase, dev, smi, tmp, inp, WIDE_XK)
@@ -3721,8 +3307,6 @@ def main(argv=None) -> int:
 
     for name, st, paths in (("merge_fold", fold_stats, fold_paths),
                             ("merge_sorted", merge_stats, merge_paths),
-                            *(("merge_fold", st, st.pop("paths"))
-                              for st in fold_more),
                             *(("merge_sorted", st, st.pop("paths"))
                               for st in merge_more),
                             ("merge_fold", fold_shard, fold_shard["paths"]),
@@ -3745,7 +3329,7 @@ def main(argv=None) -> int:
          "replaces": "gossamer_tpu/ops/pallas_fold.py:151",
          "launches": sum(fold_paths.values()),
          "launches_per_path": fold_paths, **fold_stats,
-         "shapes": fold_more, "per_shard": fold_shard},
+         "per_shard": fold_shard},
         {"name": "merge_sorted", "route": "cuda",
          "source": "gossamer_tpu_torch/csrc/merge.cu",
          "replaces": "gossamer_tpu/ops/pallas_merge.py:116",

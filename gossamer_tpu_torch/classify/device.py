@@ -22,12 +22,6 @@ Read ids come from the read start offsets of the batch, never from the
 invalid-code positions: an ``N`` inside a read is invalid but does not
 start a read (the JAX package's engines count it as a separator).
 
-:func:`classify_batch_periodic2` is the JAX package's two-sort engine for
-reads of one length: only the valid windows become lanes, and queries are
-canonicalized by value against a set re-represented once by
-:func:`recanon_set_value`.  It joins and aggregates like the other narrow
-engines.
-
 :func:`join_ranks_batch` is the same join for sets whose payload is an
 annotation per key held on the host: it returns each window's rank in the
 set (the taxonomy commands).
@@ -47,7 +41,6 @@ import torch
 from ..core import kmer as K
 from ..ops import device_kmer as dk
 from ..ops import engine_wide as ew
-from ..ops.canon import canon_value
 from ..ops.kmerize import M32, kmerize_packed, kmerize_words
 from ..ops.merge import merge_sorted
 from ..utils import profile
@@ -303,144 +296,12 @@ def join_ranks_device(codes_list, set_keys: torch.Tensor, k: int,
     return np.concatenate(rids)[m], ranks[m]
 
 
-# ------------------------------------------- the two-sort periodic engine
-def recanon_set_value(set_E: np.ndarray, k: int) -> np.ndarray:
-    """Re-represent an annotated set's classes by their min-by-value
-    canonical k-mer (numpy uint64 E plane in, the same out, sorted).  Keys
-    stay distinct: each key is one canonical class and this picks the other
-    representative of the same class.  Queries can then be canonicalized
-    with :func:`..ops.canon.canon_value` instead of the FNV order; per-read
-    blrg is the same because membership is class membership."""
-    lo = set_E >> np.uint64(2)
-    cls = set_E & np.uint64(3)
-    rlo, _ = K.reverse_complement(lo, np.zeros_like(lo), k)
-    vlo = np.minimum(lo, rlo)
-    order = np.argsort(vlo, kind="stable")
-    return (vlo[order] << np.uint64(2)) | cls[order]
-
-
-def prepare_set_value(set_E: np.ndarray, k: int,
-                      device: torch.device) -> torch.Tensor:
-    """One-time set prep for :func:`classify_periodic_stream2`: the numpy E
-    plane re-represented by value, as the port's int64 E tensor on
-    ``device``."""
-    from ..convert import set_from_u64
-
-    return set_from_u64(recanon_set_value(np.asarray(set_E), k), device)
-
-
-def classify_batch_periodic2(words: torch.Tensor, n_reads: int,
-                             set_E: torch.Tensor, k: int, max_reads: int,
-                             C: int, T: int) -> torch.Tensor:
-    """Reads of one length at period T (``classify_batch_periodic``'s
-    layout), ``set_E`` from :func:`prepare_set_value` -> blrg
-    uint8[max_reads].  Window validity is a property of the position, so
-    only each read's T - k real windows become query lanes (no sentinel
-    lane rides through the sort), and they are canonicalized by value."""
-    if C % 16 or max_reads * T > C:
-        raise ValueError(f"periodic2 needs C % 16 == 0 and max_reads * T <= C "
-                         f"(C={C}, max_reads={max_reads}, T={T})")
-    keys = kmerize_words(words.to(torch.int64) & M32, k, C)
-    nk = T - k  # valid windows per read
-    q = keys[: max_reads * T].view(max_reads, T)[:, :nk].reshape(-1)
-    rid = torch.arange(max_reads, dtype=torch.int64,
-                       device=words.device).repeat_interleave(nk)
-    qE = torch.where(rid < n_reads, (canon_value(q, k) << 2) | 3, SENT)
-    return _classify_join(set_E, qE, rid, max_reads)
-
-
-def _words_to_dev(words: np.ndarray, device: torch.device) -> torch.Tensor:
-    return torch.from_numpy(np.ascontiguousarray(words, np.uint32)
-                            .view(np.int32)).to(device)
-
-
-def classify_periodic_stream2(chunks, set_E, k: int, window: int,
-                              read_len: int, *, device: torch.device,
-                              prepared: torch.Tensor | None = None) -> np.ndarray:
-    """Device classify over words-only chunks of reads of one length, through
-    :func:`classify_batch_periodic2`.
-
-    ``chunks``: iterable of ``(words, n_reads)``: whole reads of ``read_len``
-    bases at period ``read_len + 1`` packed as ``io.stream.pack_chunk`` packs
-    them (what the separator cells hold does not matter).  ``set_E``: the
-    annotated set's numpy E plane in any canonical representation; pass
-    ``prepared=prepare_set_value(...)`` to reuse the prep across calls.
-    Returns blrg per read in stream order."""
-    T = read_len + 1
-    max_reads = window // T
-    if prepared is None:
-        prepared = prepare_set_value(set_E, k, device)
-    out_dev = []
-    out_counts = []
-    for words, n_reads in chunks:
-        if n_reads > max_reads:
-            raise ValueError(f"chunk of {n_reads} reads exceeds the window's "
-                             f"{max_reads}")
-        out_dev.append(classify_batch_periodic2(
-            _words_to_dev(words, prepared.device), int(n_reads), prepared, k,
-            max_reads, window, T))
-        out_counts.append(int(n_reads))
-    return _gather(out_dev, out_counts)
-
-
-def classify_periodic_stream(chunks, set_E: torch.Tensor, k: int, window: int,
-                             read_len: int,
-                             max_reads: int | None = None) -> np.ndarray:
-    """Device classify over words-only ``(words, n_reads)`` chunks of reads
-    of one length (see :func:`classify_periodic_stream2`), through
-    :func:`classify_batch_periodic`; ``set_E`` is the port's E tensor."""
-    T = read_len + 1
-    if max_reads is None:
-        max_reads = max(256, window // 32)
-    out_dev = []
-    out_counts = []
-    for words, n_reads in chunks:
-        if n_reads > max_reads:
-            raise ValueError(f"chunk of {n_reads} reads exceeds max_reads "
-                             f"{max_reads}")
-        nwin = max(0, int(n_reads) * T - k + 1)
-        out_dev.append(classify_batch_periodic(
-            _words_to_dev(words, set_E.device), nwin, set_E, k, max_reads,
-            window, T))
-        out_counts.append(int(n_reads))
-    return _gather(out_dev, out_counts)
-
-
-def classify_packed_stream(chunks, set_E: torch.Tensor, k: int, window: int,
-                           max_reads: int | None = None) -> np.ndarray:
-    """Device classify over pre-packed chunks, through
-    :func:`classify_batch_packed`.
-
-    ``chunks``: iterable of ``(words, inval, starts)``: a 255-separated
-    stream of whole reads padded to ``window`` windows and packed with
-    ``io.stream.pack_chunk``, and the start offset of each read (int64,
-    ascending).  The JAX package's chunks carry a read count instead and
-    take read ids from the invalid codes; the port takes them from the
-    starts, so an ``N`` stays inside its read."""
-    if max_reads is None:
-        max_reads = max(256, window // 32)
-    device = set_E.device
-    out_dev = []
-    out_counts = []
-    for words, inval, starts in chunks:
-        if len(starts) > max_reads:
-            raise ValueError(f"chunk of {len(starts)} reads exceeds max_reads "
-                             f"{max_reads}")
-        out_dev.append(classify_batch_packed(
-            _words_to_dev(words, device),
-            torch.from_numpy(np.asarray(inval, np.uint8)).to(device),
-            torch.from_numpy(np.asarray(starts, np.int64)).to(device),
-            set_E, k, max_reads, window))
-        out_counts.append(len(starts))
-    return _gather(out_dev, out_counts)
-
-
 # ------------------------------------------------------------------ wide keys
 def encode_set_wide(lo, hi, lhs, rhs, k: int):
     """Annotated wide set (numpy uint64 ``lo``, ``hi`` planes, membership
     bits) -> ``(e_hi, e_lo)`` numpy uint64 planes of E = (key << 2) | class,
-    sorted, with every class re-represented by its min-by-value k-mer
-    (:func:`recanon_set_value`), so queries skip the FNV hash."""
+    sorted, with every class re-represented by its min-by-value k-mer, so
+    queries skip the FNV hash."""
     lo = np.asarray(lo, np.uint64)
     hi = np.asarray(hi, np.uint64)
     rlo, rhi = K.reverse_complement(lo, hi, k)

@@ -5,8 +5,7 @@ and low words, count) with the sentinel pair ``(SENT32, SENT32)``; the
 port keeps one int64 key per lane with the sentinel ``2**63 - 1`` and
 int64 counts in [0, 2^32).  The JAX classifier holds its annotated set
 as a uint64 E plane or as (high, low) uint32 planes; the port as one
-int64 E tensor.  The two-sort periodic engine takes the same set
-re-represented by value (:func:`value_set_from_planes`).
+int64 E tensor.
 
 Wide keys (rho > 31): the JAX engine keeps five uint32 planes ``(p3, p2,
 p1, p0, c)`` with the sentinel all ``SENT32``; the port keeps the two-lane
@@ -78,18 +77,6 @@ def planes_from_set(set_E: torch.Tensor):
     """The port's int64 E tensor -> the JAX (set_eh, set_el) uint32 planes."""
     e = set_to_u64(set_E)
     return (e >> np.uint64(32)).astype(np.uint32), e.astype(np.uint32)
-
-
-def value_set_from_planes(eh: np.ndarray, el: np.ndarray, k: int,
-                          device: torch.device) -> torch.Tensor:
-    """The JAX classifier's (set_eh, set_el) planes in any canonical
-    representation -> the port's E tensor re-represented by value, as
-    ``classify.device.classify_batch_periodic2`` takes it (the counterpart
-    of the JAX ``prepare_set_value``'s planes)."""
-    from .classify.device import prepare_set_value
-
-    return prepare_set_value(set_to_u64(set_from_planes(eh, el, "cpu")), k,
-                             device)
 
 
 # ------------------------------------------------------------------ wide keys

@@ -6,12 +6,11 @@ chunk reader (wide keys), the symmetric expansion and the 64-bit and
 128-bit spill codecs; to what the graph queries run on narrow graphs:
 the blocked rank search, the chain walks, the fused node degrees and the
 fused successor table; to what threading runs: the read-aligned
-block reader and the rolling k-merizer; and to the early pull's host tail:
-the expansion order and its application, the split and insertion of new
-keys' counts and the delta decoder, each with its numpy form beside it.  The library is compiled at first use
-from the checkout's ``native/gossio.cpp`` with the flags of
-``native/Makefile`` into ``gossamer_tpu_torch/_build/``, so it is always
-built for the machine that loads it.  A checked-in ``native/libgossio.so``
+block reader and the rolling k-merizer; and to the pull of a spilled
+spectrum: the delta decoder, with its numpy form beside it.  The library
+is compiled at first use from the checkout's ``native/gossio.cpp`` with
+the flags of ``native/Makefile`` into ``gossamer_tpu_torch/_build/``, so it
+is always built for the machine that loads it.  A checked-in ``native/libgossio.so``
 is never loaded and ``native/`` is never written.
 """
 
@@ -122,17 +121,6 @@ def _load() -> ctypes.CDLL | NativeUnavailable:
     lib.gossio_successor_table_u64.restype = None
     lib.gossio_successor_table_u64.argtypes = [u64p, ctypes.c_long,
                                                ctypes.c_int, i64p, ctypes.c_int]
-    lib.gossio_expand_order.restype = ctypes.c_long
-    lib.gossio_expand_order.argtypes = [ctypes.c_long, u64p, ctypes.c_int,
-                                        u64p, i64p, u8p]
-    lib.gossio_apply_order.restype = None
-    lib.gossio_apply_order.argtypes = [ctypes.c_long, i64p, u8p, i64p, i64p]
-    lib.gossio_split_counts.restype = None
-    lib.gossio_split_counts.argtypes = [ctypes.c_long, ctypes.c_long, i64p,
-                                        i64p, i64p, i64p]
-    lib.gossio_insert_merge.restype = None
-    lib.gossio_insert_merge.argtypes = [ctypes.c_long, ctypes.c_long, u64p,
-                                        i64p, u64p, i64p, u64p, i64p]
     lib.gossio_delta_unpack.restype = None
     lib.gossio_delta_unpack.argtypes = [ctypes.c_long, u32p, u8p,
                                         ctypes.c_long, u32p, u32p, u32p, u32p,
@@ -251,98 +239,7 @@ def native_expand_symmetric(lo: np.ndarray, c: np.ndarray, rho: int):
     return out_lo[:m], out_c[:m]
 
 
-# ------------------------------------------------ the early pull's host tail
-def native_expand_order(lo: np.ndarray, rho: int):
-    """Expansion order of a canonical spectrum (keys only) -> ``(out_lo,
-    src, dbl)``: the symmetric spectrum is ``(out_lo, where(dbl, 2 *
-    c[src], c[src]))`` for any counts ``c`` aligned with ``lo``.  The
-    engine computes it in a worker from the early pull's snapshot keys."""
-    lib = load_library()
-    n = len(lo)
-    lo = np.ascontiguousarray(lo, dtype=np.uint64)
-    out_lo = np.empty(2 * n, np.uint64)
-    src = np.empty(2 * n, np.int64)
-    dbl = np.empty(2 * n, np.uint8)
-    m = lib.gossio_expand_order(n, _ptr(lo, ctypes.c_uint64), rho,
-                                _ptr(out_lo, ctypes.c_uint64),
-                                _ptr(src, ctypes.c_int64),
-                                _ptr(dbl, ctypes.c_uint8))
-    return out_lo[:m], src[:m], dbl[:m].astype(bool)
-
-
-def native_apply_order(src: np.ndarray, dbl: np.ndarray,
-                       c: np.ndarray) -> np.ndarray:
-    """``where(dbl, 2 * c[src], c[src])`` in a two-thread C loop."""
-    lib = load_library()
-    m = len(src)
-    src = np.ascontiguousarray(src, dtype=np.int64)
-    dblc = np.ascontiguousarray(dbl, dtype=np.uint8)
-    c = np.ascontiguousarray(c, dtype=np.int64)
-    out = np.empty(m, np.int64)
-    lib.gossio_apply_order(m, _ptr(src, ctypes.c_int64),
-                           _ptr(dblc, ctypes.c_uint8), _ptr(c, ctypes.c_int64),
-                           _ptr(out, ctypes.c_int64))
-    return out
-
-
-def apply_order_plain(src: np.ndarray, dbl: np.ndarray,
-                      c: np.ndarray) -> np.ndarray:
-    """numpy form of :func:`native_apply_order`."""
-    out = c[src]
-    return np.where(dbl, 2 * out, out)
-
-
-def native_split_counts(idx: np.ndarray, c: np.ndarray, n1: int,
-                        n_new: int):
-    """Counts aligned with merge(snapshot keys, new keys) -> (snapshot-
-    aligned, new-key-aligned) counts; ``idx`` holds the new keys' sorted
-    insertion positions into the snapshot (new key j sits at ``idx[j] +
-    j``)."""
-    lib = load_library()
-    idx = np.ascontiguousarray(idx, dtype=np.int64)
-    c = np.ascontiguousarray(c, dtype=np.int64)
-    out_snap = np.empty(n1, np.int64)
-    out_new = np.empty(n_new, np.int64)
-    lib.gossio_split_counts(n1, n_new, _ptr(idx, ctypes.c_int64),
-                            _ptr(c, ctypes.c_int64),
-                            _ptr(out_snap, ctypes.c_int64),
-                            _ptr(out_new, ctypes.c_int64))
-    return out_snap, out_new
-
-
-def split_counts_plain(idx: np.ndarray, c: np.ndarray, n1: int, n_new: int):
-    """numpy form of :func:`native_split_counts`."""
-    cum = np.cumsum(np.bincount(idx, minlength=n1 + 1))[:n1]
-    return (c[np.arange(n1, dtype=np.int64) + cum],
-            c[idx + np.arange(n_new, dtype=np.int64)])
-
-
-def native_insert_merge(base_lo, base_c, add_lo, add_c):
-    """One-pass merge of a large sorted ``(lo, c)`` spectrum with a small
-    sorted addition of disjoint keys -> ``(lo, c)``."""
-    lib = load_library()
-    n, m = len(base_lo), len(add_lo)
-    base_lo = np.ascontiguousarray(base_lo, dtype=np.uint64)
-    base_c = np.ascontiguousarray(base_c, dtype=np.int64)
-    add_lo = np.ascontiguousarray(add_lo, dtype=np.uint64)
-    add_c = np.ascontiguousarray(add_c, dtype=np.int64)
-    out_lo = np.empty(n + m, np.uint64)
-    out_c = np.empty(n + m, np.int64)
-    lib.gossio_insert_merge(n, m, _ptr(base_lo, ctypes.c_uint64),
-                            _ptr(base_c, ctypes.c_int64),
-                            _ptr(add_lo, ctypes.c_uint64),
-                            _ptr(add_c, ctypes.c_int64),
-                            _ptr(out_lo, ctypes.c_uint64),
-                            _ptr(out_c, ctypes.c_int64))
-    return out_lo, out_c
-
-
-def insert_merge_plain(base_lo, base_c, add_lo, add_c):
-    """numpy form of :func:`native_insert_merge`."""
-    ins = np.searchsorted(base_lo, add_lo)
-    return np.insert(base_lo, ins, add_lo), np.insert(base_c, ins, add_c)
-
-
+# ------------------------------------------- the pull of a spilled spectrum
 def native_delta_unpack(d: np.ndarray, cpack_u8: np.ndarray,
                         e_lane: np.ndarray, e1: np.ndarray, e0: np.ndarray,
                         ec: np.ndarray, n_out: int):

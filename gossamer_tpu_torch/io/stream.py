@@ -1,8 +1,8 @@
 """Flat 2-bit base streams for device kmerization.
 
-Copy of ``flat_code_chunks``, ``pack_chunk``, ``pack_chunk_sparse`` and
-``packed_code_chunks`` from ``gossamer_tpu/io/stream.py``.  Reads are concatenated into one flat code
-stream with a separator code (255) between reads; any k-mer window
+Copy of ``flat_code_chunks``, ``pack_chunk`` and ``packed_code_chunks``
+from ``gossamer_tpu/io/stream.py``.  Reads are concatenated into one flat
+code stream with a separator code (255) between reads; any k-mer window
 containing a separator or an invalid base is masked out on device, which
 reproduces the reference's "skip windows with non-ACGT bases" semantics
 (``src/GossReadBaseString.hh:52-103``).
@@ -66,12 +66,6 @@ def pack_chunk(codes: np.ndarray, k: int, chunk: int | None = None):
     overlap of at most 32 bases: for ``k - 1 > 32`` it raises, and the caller
     feeds raw codes instead (the wide engine packs them on the device).
     """
-    C = _check_packable(codes, k, chunk)
-    inval = np.packbits(codes > 3, bitorder="little")
-    return _pack_words(codes, C), inval
-
-
-def _check_packable(codes: np.ndarray, k: int, chunk: int | None) -> int:
     if k - 1 > 32:
         raise ValueError(f"pack_chunk: the packed format holds an overlap of "
                          f"at most 32 bases (k - 1 = {k - 1}); feed raw codes")
@@ -79,7 +73,8 @@ def _check_packable(codes: np.ndarray, k: int, chunk: int | None) -> int:
     if C % 16 or len(codes) != C + k - 1:
         raise ValueError(f"pack_chunk: need C % 16 == 0 and C + k - 1 codes "
                          f"(C={C}, k={k}, codes={len(codes)})")
-    return C
+    inval = np.packbits(codes > 3, bitorder="little")
+    return _pack_words(codes, C), inval
 
 
 def _pack_words(codes: np.ndarray, C: int) -> np.ndarray:
@@ -93,32 +88,6 @@ def _pack_words(codes: np.ndarray, C: int) -> np.ndarray:
     m = c[: W * 16].reshape(W, 16)
     shifts = (30 - 2 * np.arange(16)).astype(np.uint32)
     return np.bitwise_or.reduce(m << shifts, axis=1).astype(np.uint32)
-
-
-def pack_chunk_sparse(codes: np.ndarray, k: int, chunk: int | None = None,
-                      max_pos: int | None = None):
-    """:func:`pack_chunk` with sparse invalidity: ``(words, invpos,
-    n_windows)`` per :func:`gossamer_tpu_torch.ops.kmerize.
-    kmerize_packed_sparse` (``gossamer_tpu/io/stream.py``
-    ``pack_chunk_sparse``).
-
-    ``invpos`` lists the ascending positions of the invalid codes, padded
-    to ``max_pos`` entries (default C // 64) with ``C + k``; a trailing
-    invalid run (the last chunk's padding) is carried by ``n_windows``
-    instead.  Returns None when the chunk holds more invalid codes than
-    ``max_pos``: the caller then packs it with :func:`pack_chunk`.
-    """
-    C = _check_packable(codes, k, chunk)
-    P = max_pos if max_pos is not None else C // 64
-    nz = np.nonzero(codes <= 3)[0]
-    t = int(nz[-1]) + 1 if len(nz) else 0
-    n_win = max(0, min(C, t - k + 1))
-    bad = np.nonzero(codes[:t] > 3)[0]
-    if len(bad) > P:
-        return None
-    invpos = np.full(P, C + k, np.uint32)
-    invpos[: len(bad)] = bad
-    return _pack_words(codes, C), invpos, n_win
 
 
 def packed_code_chunks(

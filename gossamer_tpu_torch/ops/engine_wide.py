@@ -31,7 +31,7 @@ Profile (``utils/profile.py``): scope ``wide/flush`` around each batch
 step, ``sync`` around each read of a ``live``, ``spill`` around a spill
 (counter ``#spill_runs``, one a spilled run), and the finish's phases
 ``flush_tail``, ``pull`` and ``expand`` as scopes; every pull to the host
-goes through ``engine._planes_to_host`` (``to_host``, ``#d2h_bytes``,
+goes through ``transfer.planes_to_host`` (``to_host``, ``#d2h_bytes``,
 ``#d2h_pinned_bytes``): a spectrum's planes in one pull.
 """
 
@@ -43,8 +43,9 @@ import torch.nn.functional as F
 
 from ..utils import profile
 from .canon import FNV_OFFSET, M32, MODES, _fnv_step, _rev2_u32
-from .engine import _planes_to_host, _read_live, _sync, _to_device
 from .kmerize import windows_without
+from .transfer import (host_merge, merge_all, planes_to_host, read_live, sync,
+                       to_device)
 
 SENT = (1 << 63) - 1
 TOP = -(1 << 63)  # the int64 whose only set bit is bit 63
@@ -79,7 +80,7 @@ def lanes_from_u64(lo: np.ndarray, hi: np.ndarray, device: torch.device):
 def u64_from_lanes(hi: torch.Tensor, lo: torch.Tensor, *payloads):
     """Lanes -> host key planes ``(lo, hi)`` as numpy uint64, then each
     payload as it is, all in one pull."""
-    lo_u, hi_u, *rest = _planes_to_host(lo ^ TOP, hi, *payloads)
+    lo_u, hi_u, *rest = planes_to_host(lo ^ TOP, hi, *payloads)
     return lo_u.view(np.uint64), hi_u.view(np.uint64), *rest
 
 
@@ -279,21 +280,6 @@ def empty_spec_wide(cap: int, device: torch.device):
                                            device=device)
 
 
-def host_merge(a, b):
-    """Merge two sorted host runs ``(lo, hi, c)``, summing the counts of
-    equal keys."""
-    lo = np.concatenate([a[0], b[0]])
-    hi = np.concatenate([a[1], b[1]])
-    c = np.concatenate([a[2], b[2]])
-    if len(lo) == 0:
-        return lo, hi, c
-    order = np.lexsort((lo, hi))
-    lo, hi, c = lo[order], hi[order], c[order]
-    new = np.ones(len(lo), dtype=bool)
-    new[1:] = (lo[1:] != lo[:-1]) | (hi[1:] != hi[:-1])
-    return lo[new], hi[new], np.add.reduceat(c, np.nonzero(new)[0])
-
-
 # --------------------------------------------------------------------- engine
 class SpectrumEngineWide:
     """Host side of the wide count: stream raw code chunks (uint8, ``chunk +
@@ -364,7 +350,7 @@ class SpectrumEngineWide:
         ``live`` against the cap."""
         if not self.buf:
             return
-        codes = _to_device(np.stack(self.buf), self.device)
+        codes = to_device(np.stack(self.buf), self.device)
         batch_lanes = len(self.buf) * self.chunk
         self.buf = []
         want = min(self.req_cap, max(1 << 14, 2 * batch_lanes))
@@ -386,7 +372,7 @@ class SpectrumEngineWide:
         bound = self._checked_live + self._lanes_since_check
         next_lanes = self.batch * self.chunk
         if bound + next_lanes > self.cap:
-            self._checked_live = _read_live(live)
+            self._checked_live = read_live(live)
             self._lanes_since_check = 0
             if self._checked_live > self.cap:
                 raise RuntimeError(
@@ -409,7 +395,7 @@ class SpectrumEngineWide:
         return u64_from_lanes(*(t[:n_out] for t in spec))
 
     def _live(self) -> int:
-        n_out = _read_live(self.live_scalars[-1]) if self.live_scalars else 0
+        n_out = read_live(self.live_scalars[-1]) if self.live_scalars else 0
         self._check_live()
         return n_out
 
@@ -449,11 +435,7 @@ class SpectrumEngineWide:
         runs = [decode_spill_run128(run, n) if kind == "eac128" else run
                 for kind, run, n in self.host_runs]
         runs.append(self._pull(self.spec, self._live()))
-        while len(runs) > 1:
-            runs.sort(key=lambda r: len(r[0]))
-            a, b = runs.pop(0), runs.pop(0)
-            runs.append(host_merge(a, b))
-        return runs[0]
+        return merge_all(runs, host_merge, [], "on the host")
 
     def finish(self):
         """-> (lo u64, hi u64, counts i64), sorted by (hi, lo)."""
@@ -475,7 +457,7 @@ class SpectrumEngineWide:
         expansion)."""
         with profile.context("flush_tail", clock=True) as tail:
             self._flush(final=True)
-            _sync(self.device)
+            sync(self.device)
         self.phases = {"flush_tail": tail.seconds}
         if self.spec is None:
             z = np.zeros(0, np.uint64)
@@ -500,7 +482,7 @@ class SpectrumEngineWide:
             n_live = self._live()
             *spec, live = expand_step_wide(*(t[:n_live] for t in self.spec),
                                            self.rho)
-            n_out = _read_live(live)
+            n_out = read_live(live)
         self.phases["expand"] = expand.seconds
         with profile.context("pull", clock=True) as pull:
             out = self._pull(spec, n_out)

@@ -99,49 +99,3 @@ def kmerize_planes(codes: torch.Tensor, rho: int):
         keys |= b & 3
     return keys, valid
 
-
-def kmerize_packed_sparse(words_i32: torch.Tensor, invpos: torch.Tensor,
-                          nwin: torch.Tensor, rho: int, C: int):
-    """:func:`kmerize_packed` with sparse invalidity
-    (``gossamer_tpu/ops/engine.py`` ``kmerize_packed_sparse``): ``invpos``
-    holds the ascending stream positions of the invalid codes of each chunk
-    (padded with values >= C + rho - 1), ``nwin`` the chunk's real windows.
-    Window ``p`` is valid iff no position lies in [p, p + rho) and
-    ``p < nwin``: two ``searchsorted`` counts into the position table."""
-    if C % 16:
-        raise ValueError(f"packed chunks need C % 16 == 0 (C={C})")
-    if 2 * rho > 62:
-        raise ValueError(f"narrow keys need 2*rho <= 62 (rho={rho})")
-    keys = kmerize_words(words_i32.to(torch.int64) & M32, rho, C)
-    pos = invpos.to(torch.int64).contiguous()
-    p = torch.arange(C, dtype=torch.int64, device=pos.device)
-    p = p.expand(*pos.shape[:-1], C).contiguous()
-    lo_cnt = torch.searchsorted(pos, p)
-    hi_cnt = torch.searchsorted(pos, p + rho)
-    valid = (hi_cnt == lo_cnt) & (p < nwin.to(torch.int64)[..., None])
-    return keys, valid
-
-
-def kmerize_packed_periodic(words_i32: torch.Tensor, ph: torch.Tensor,
-                            bound: torch.Tensor, nwin: torch.Tensor,
-                            rho: int, C: int, T: int):
-    """:func:`kmerize_packed` for periodic read streams
-    (``gossamer_tpu/ops/engine.py`` ``kmerize_packed_periodic``): reads of
-    T - 1 bases and one separator repeat with period T, so window ``q`` of a
-    chunk is valid iff its offset in its read, ``(q + ph) % T`` (from
-    ``bound`` on, where a new read group starts at phase 0, ``(q - bound) %
-    T``), is at most ``T - 1 - rho``, and ``q < nwin``.  No invalid-code
-    bitmap travels; the separators pack as code 0.  The card divides, so
-    the residues are taken with ``%`` (the JAX code avoids integer
-    division, which the TPU lacks)."""
-    if C % 16:
-        raise ValueError(f"packed chunks need C % 16 == 0 (C={C})")
-    if 2 * rho > 62:
-        raise ValueError(f"narrow keys need 2*rho <= 62 (rho={rho})")
-    keys = kmerize_words(words_i32.to(torch.int64) & M32, rho, C)
-    q = torch.arange(C, dtype=torch.int64, device=keys.device)
-    ph, bound, nwin = (t.to(torch.int64)[..., None] for t in (ph, bound, nwin))
-    lim = T - 1 - rho
-    valid = torch.where(q < bound, (q + ph) % T <= lim,
-                        (q - bound) % T <= lim) & (q < nwin)
-    return keys, valid

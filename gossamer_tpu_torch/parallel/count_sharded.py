@@ -44,9 +44,10 @@ import torch
 
 from ..ops import engine_wide as EW
 from ..ops.canon import canonicalize
-from ..ops.engine import _sync, _to_device, narrow_keys
+from ..ops.engine import narrow_keys
 from ..ops.fold import SENT, merge_fold
 from ..ops.kmerize import M32, kmerize_packed
+from ..ops.transfer import sync, to_device
 from . import mesh as M
 
 
@@ -247,8 +248,8 @@ class ShardedSpectrumEngine(_Sharded):
                  torch.zeros(self.cap_l, dtype=torch.int64, device=d))
                 for d in devs]
         routed = [_local_route(
-            _to_device(np.ascontiguousarray(w, np.uint32).view(np.int32), d),
-            _to_device(np.ascontiguousarray(v, np.uint8), d), self.rho,
+            to_device(np.ascontiguousarray(w, np.uint32).view(np.int32), d),
+            to_device(np.ascontiguousarray(v, np.uint8), d), self.rho,
             self.chunk, self.mode, self.n, self.per)
             for (w, v), d in zip(items, devs)]
         received = M.all_to_all(self.mesh, [b for b, _ in routed])
@@ -262,7 +263,7 @@ class ShardedSpectrumEngine(_Sharded):
         """-> (lo u64, hi u64 zeros, counts i64), sorted."""
         t0 = time.perf_counter()
         self._flush(final=True)
-        _sync(self.mesh.home)
+        sync(self.mesh.home)
         self.phases = {"flush_tail": time.perf_counter() - t0}
         if self.spec is None:
             z = np.zeros(0, np.uint64)
@@ -276,7 +277,7 @@ class ShardedSpectrumEngine(_Sharded):
         # disjoint shard key sets: one sort gives the global order
         keys, order = torch.sort(torch.cat(keys))
         counts = torch.cat(counts)[order]
-        _sync(self.mesh.home)
+        sync(self.mesh.home)
         self.phases["merge"] = time.perf_counter() - t0
         t0 = time.perf_counter()
         lo = keys.cpu().numpy().view(np.uint64)
@@ -336,7 +337,7 @@ class ShardedSpectrumEngineWide(_Sharded):
         devs = self.mesh.devices
         if self.spec is None:
             self.spec = [EW.empty_spec_wide(self.cap_l, d) for d in devs]
-        routed = [_local_route_wide(_to_device(np.ascontiguousarray(
+        routed = [_local_route_wide(to_device(np.ascontiguousarray(
             c, np.uint8), d), self.rho, self.mode, self.n, self.per)
             for c, d in zip(items, devs)]
         r_hi = M.all_to_all(self.mesh, [b[0] for b, _ in routed])

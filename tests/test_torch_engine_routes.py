@@ -1,10 +1,10 @@
-"""The narrow engine's other input routes against the JAX engine: raw code
-chunks (``kmerize_planes``, ``batch_step``, ``batch_step_fold``,
-``add_chunk``), sparse-invalidity and periodic packed chunks, grouped
-flushes (``batch_steps_fold_packed_scan``) and the smaller first flush, and ``count_chunks``
-at any chunk size (``chunk=0``, chunks not divisible by 16) through the
-port's CLI.  The JAX engine runs its XLA sort path (``fold=False``), the
-CPU oracle of its spectra; keys and counts must be equal.  Shapes are
+"""The narrow engine's raw code input against the JAX engine (``kmerize_planes``,
+``batch_step``, ``batch_step_fold``, ``add_chunk``); its packed input
+against the JAX engine's sparse-invalidity and periodic routes and its
+smaller first flush on the same reads; and ``count_chunks`` at any chunk
+size (``chunk=0``, chunks not divisible by 16) through the port's CLI.
+The JAX engine runs its XLA sort path (``fold=False``), the CPU oracle of
+its spectra; keys and counts must be equal.  Shapes are
 ``tests/test_engine.py``'s.
 """
 
@@ -19,14 +19,11 @@ from gossamer_tpu.ops import engine as JE
 from gossamer_tpu.ops.count import count_chunks as jax_count_chunks
 from gossamer_tpu_torch.cli.goss import main as port_main
 from gossamer_tpu_torch.convert import spectrum_from_planes
-from gossamer_tpu_torch.io.stream import (pack_chunk, pack_chunk_sparse,
-                                          packed_code_chunks)
+from gossamer_tpu_torch.io.stream import pack_chunk, packed_code_chunks
 from gossamer_tpu_torch.io.readers import Read
 from gossamer_tpu_torch.ops import engine as E
 from gossamer_tpu_torch.ops.count import count_chunks
-from gossamer_tpu_torch.ops.kmerize import (kmerize_packed_periodic,
-                                            kmerize_packed_sparse,
-                                            kmerize_planes)
+from gossamer_tpu_torch.ops.kmerize import kmerize_planes
 
 CPU = torch.device("cpu")
 
@@ -58,11 +55,6 @@ def _port(chunks, rho, mode, C, add="add_chunk", expanded=False, **kw):
     for ch in chunks:
         getattr(eng, add)(*ch) if isinstance(ch, tuple) else eng.add_chunk(ch)
     return eng, eng.finish_expanded() if expanded else eng.finish()
-
-
-def _natural(x, C):
-    """The JAX packed k-merizers' phase-major lanes -> natural order."""
-    return np.asarray(x).reshape(16, C // 16).T.reshape(-1)
 
 
 # ------------------------------------------------------------- raw codes
@@ -141,13 +133,15 @@ def test_raw_codes_spill_finish_on_device_matches_jax():
 
 
 def test_first_batch_matches_jax():
+    """The JAX engine's smaller first flush (``first_batch``) and the
+    port's equal flushes count the same spectrum."""
     rho = 26
     rng = np.random.default_rng(6)
     chunks = _chunks(rng, 7, 400, rho)
-    want = _jax(chunks, rho, "value", 400, batch=3, cap=1 << 14)
-    eng, got = _port(chunks, rho, "value", 400, batch=3, cap=1 << 14,
-                     first_batch=1)
-    assert eng._nflush == 3  # 1, then 3, 3, and none left at finish
+    want = _jax(chunks, rho, "value", 400, batch=3, cap=1 << 14,
+                first_batch=1)
+    eng, got = _port(chunks, rho, "value", 400, batch=3, cap=1 << 14)
+    assert eng.spills == 0 and len(got[0]) > 1000
     _assert_same(got, want)
 
 
@@ -160,12 +154,9 @@ def test_routes_do_not_mix():
         eng.add_chunk_packed(*pack_chunk(codes, rho, 512))
     with pytest.raises(ValueError, match="expected 537"):
         eng.add_chunk(codes[:-1])
-    with pytest.raises(ValueError, match="period"):
-        E.SpectrumEngine(rho, "value", 512, CPU).add_chunk_packed_periodic(
-            pack_chunk(codes, rho, 512)[0], 0, 600, 512)
 
 
-# ------------------------------------------------ sparse and periodic chunks
+# ------------------------------------------ the JAX sparse and periodic routes
 def _sparse_chunks(rho, chunk):
     """``tests/test_engine.py``'s sparse case: mid-chunk separators and a
     final chunk padded with 255."""
@@ -175,64 +166,29 @@ def _sparse_chunks(rho, chunk):
     return chunks
 
 
-def test_pack_chunk_sparse_matches_jax():
-    rho, chunk = 26, 512
-    for codes in _sparse_chunks(rho, chunk):
-        got = pack_chunk_sparse(codes, rho, chunk, max_pos=chunk // 4)
-        want = jax_stream.pack_chunk_sparse(codes, rho, chunk,
-                                            max_pos=chunk // 4)
-        assert got[2] == want[2]
-        assert all(np.array_equal(g, w) for g, w in zip(got[:2], want[:2]))
-    codes = np.full(chunk + rho - 1, 255, np.uint8)
-    codes[::2] = 1
-    assert pack_chunk_sparse(codes, rho, chunk, max_pos=8) is None
-    assert jax_stream.pack_chunk_sparse(codes, rho, chunk, max_pos=8) is None
-
-
-def test_kmerize_sparse_and_periodic_match_jax():
-    rho, C, T = 26, 512, 51
-    rng = np.random.default_rng(41)
-    codes = _sparse_chunks(rho, C)[-1]
-    words, invpos, nwin = pack_chunk_sparse(codes, rho, C, max_pos=C // 4)
-    l1, l0, v = JE.kmerize_packed_sparse(jnp.asarray(words),
-                                         jnp.asarray(invpos), nwin, rho, C)
-    keys, valid = kmerize_packed_sparse(
-        torch.from_numpy(words.view(np.int32)),
-        torch.from_numpy(invpos.view(np.int32)), torch.tensor(nwin), rho, C)
-    assert np.array_equal(valid.numpy(), _natural(v, C))
-    want = (_natural(l1, C).astype(np.int64) << 32) | _natural(l0, C)
-    assert np.array_equal(keys.numpy(), want)
-    words = pack_chunk(rng.integers(0, 4, C + rho - 1, dtype=np.uint8),
-                       rho, C)[0]
-    for ph, bound, nwin in ((7, C + rho, C), (50, 200, 400), (0, 0, C)):
-        _l1, _l0, v = JE.kmerize_packed_periodic(jnp.asarray(words), ph,
-                                                 bound, nwin, rho, C, T)
-        _keys, valid = kmerize_packed_periodic(
-            torch.from_numpy(words.view(np.int32)), torch.tensor(ph),
-            torch.tensor(bound), torch.tensor(nwin), rho, C, T)
-        assert np.array_equal(valid.numpy(), _natural(v, C))
-
-
 @pytest.mark.parametrize("fold", [False, True])
 def test_sparse_packed_matches_jax(fold):
+    """The port's packed route on the reads of the JAX engine's
+    sparse-invalidity route: the same spectrum."""
     rho, chunk = 26, 512
     chunks = _sparse_chunks(rho, chunk)
-    sparse = [pack_chunk_sparse(c, rho, chunk, max_pos=chunk // 4)
+    sparse = [jax_stream.pack_chunk_sparse(c, rho, chunk, max_pos=chunk // 4)
               for c in chunks]
-    want = _jax(chunks, rho, "value", chunk, batch=2, cap=1 << 14)
-    eng, got = _port(sparse, rho, "value", chunk, "add_chunk_packed_sparse",
-                     batch=2, cap=1 << 14, fold=fold)
-    assert eng.sparse and len(got[0]) > 1000
+    want = _jax(sparse, rho, "value", chunk, "add_chunk_packed_sparse",
+                batch=2, cap=1 << 14)
+    eng, got = _port([pack_chunk(c, rho, chunk) for c in chunks], rho,
+                     "value", chunk, "add_chunk_packed", batch=2, cap=1 << 14,
+                     fold=fold)
+    assert eng.packed and len(got[0]) > 1000
     _assert_same(got, want)
-    jsparse = _jax(sparse, rho, "value", chunk, "add_chunk_packed_sparse",
-                   batch=2, cap=1 << 14)
-    _assert_same(got, jsparse)
 
 
 @pytest.mark.parametrize("fold", [False, True])
 def test_periodic_packed_matches_jax(fold):
     """``tests/test_engine.py``'s periodic case: two passes of 50 bp reads
-    (period 51) back to back, a pass boundary inside a chunk, padding."""
+    (period 51) back to back, a pass boundary inside a chunk, padding.  The
+    JAX engine's periodic route and the port's packed route on the same
+    stream: the same spectrum."""
     rho, L, chunk = 26, 50, 512
     T = L + 1
     rng = np.random.default_rng(41)
@@ -245,92 +201,23 @@ def test_periodic_packed_matches_jax(fold):
     n_chunks = -(-len(flat) // chunk)
     stream = np.full(n_chunks * chunk + rho - 1, 255, np.uint8)
     stream[: len(flat)] = flat
-    raw, periodic = [], []
+    packed, periodic = [], []
     starts = [0, len(passes[0])]
     for i in range(n_chunks):
         p0 = i * chunk
         codes = stream[p0 : p0 + chunk + rho - 1]
-        raw.append(codes)
+        packed.append(pack_chunk(codes, rho, chunk))
         cur = max(s for s in starts if s <= p0)
         nxt = [s for s in starts if s > p0]
         bound = (nxt[0] - p0) if nxt else chunk + rho
         nwin = max(0, min(chunk, len(flat) - rho + 1 - p0))
-        periodic.append((pack_chunk(codes, rho, chunk)[0], (p0 - cur) % T,
-                         bound, nwin))
-    want = _jax(raw, rho, "value", chunk, batch=2, cap=1 << 14)
-    eng, got = _port(periodic, rho, "value", chunk,
-                     "add_chunk_packed_periodic", batch=2, cap=1 << 14,
-                     fold=fold, period=T)
-    assert eng.periodic and len(got[0]) > 400
+        periodic.append((packed[-1][0], (p0 - cur) % T, bound, nwin))
+    want = _jax(periodic, rho, "value", chunk, "add_chunk_packed_periodic",
+                batch=2, cap=1 << 14, period=T)
+    eng, got = _port(packed, rho, "value", chunk, "add_chunk_packed",
+                     batch=2, cap=1 << 14, fold=fold)
+    assert eng.packed and len(got[0]) > 400
     _assert_same(got, want)
-
-
-# --------------------------------------------------- grouped and first flushes
-def test_scan_groups_match_jax():
-    """Two groups of 2 x 2 chunks, one whole batch and a short rest, as
-    ``tests/test_engine.py``'s scan case: folded group by group with
-    :func:`batch_steps_fold_packed_scan` (the rest one batch a call), the
-    spectrum equals the JAX engine's; the engine keeps ``scan_groups``
-    (1 with spills, as JAX) and flushes batch by batch."""
-    rho, chunk, cap = 8, 64, 1 << 14
-    rng = np.random.default_rng(11)
-    raw = [rng.integers(0, 4, chunk + rho - 1, dtype=np.uint8)
-           for _ in range(11)]
-    packed = [pack_chunk(c, rho, chunk) for c in raw]
-    want = _jax(raw, rho, "value", chunk, batch=2, cap=cap)
-
-    def stack(items, i):
-        return torch.from_numpy(np.stack([t[i] for t in items]))
-
-    keys, counts = E.empty_spec(cap, CPU)
-    lives = []
-    for g in range(0, 8, 4):
-        grp = packed[g:g + 4]
-        words = stack(grp, 0).view(torch.int32).view(2, 2, -1)
-        keys, counts, live = E.batch_steps_fold_packed_scan(
-            words, stack(grp, 1).view(2, 2, -1), keys, counts, rho, "value",
-            cap, chunk)
-        lives.append(int(live))
-    for g in (8, 10):
-        grp = packed[g:g + 2]
-        keys, counts, live = E.batch_step_packed(
-            stack(grp, 0).view(torch.int32), stack(grp, 1), keys, counts, rho,
-            "value", cap, chunk)
-        lives.append(int(live))
-    n = lives[-1]
-    assert lives == sorted(lives) and n == len(want[0])
-    assert np.array_equal(keys[:n].numpy().view(np.uint64), want[0])
-    assert np.array_equal(counts[:n].numpy(), want[2])
-    want = _jax(raw, rho, "value", chunk, expanded=True, batch=2, cap=cap)
-    for groups in (1, 2):
-        eng, got = _port(packed, rho, "value", chunk, "add_chunk_packed",
-                         expanded=True, batch=2, cap=cap, spill=False,
-                         scan_groups=groups)
-        assert eng.scan_groups == groups and eng._nflush == 6
-        _assert_same(got, want)
-    assert E.SpectrumEngine(rho, "value", chunk, CPU,
-                            scan_groups=4).scan_groups == 1  # spill=True
-
-
-def test_scan_keeps_an_unordered_live():
-    """The grouped step reports -1 when one fold of the group saw its
-    input out of order, where a max of the lives would hide it."""
-    rho, C, cap = 8, 64, 1 << 10
-    rng = np.random.default_rng(2)
-    packed = [pack_chunk(rng.integers(0, 4, C + rho - 1, dtype=np.uint8),
-                         rho, C) for _ in range(4)]
-    words = torch.from_numpy(np.stack([w for w, _ in packed]).view(np.int32))
-    inval = torch.from_numpy(np.stack([v for _, v in packed]))
-    keys, counts = E.empty_spec(cap, CPU)
-    keys, counts, live = E.batch_steps_fold_packed_scan(
-        words.view(2, 2, -1), inval.view(2, 2, -1), keys, counts, rho,
-        "value", cap, C)
-    assert 0 < int(live) < cap
-    keys = keys.flip(0).contiguous()  # the spectrum out of order
-    *_, live = E.batch_steps_fold_packed_scan(
-        words.view(2, 2, -1), inval.view(2, 2, -1), keys, counts, rho,
-        "value", cap, C)
-    assert int(live) == -1
 
 
 # ------------------------------------------------ count_chunks and the CLI

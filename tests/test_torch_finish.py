@@ -1,28 +1,26 @@
-"""The narrow engine's finish on the device, run here on CPU tensors:
-``expand_step`` and ``spectra_merge`` against the JAX functions, the
-device merge of spilled runs (``merge_runs``) and the device expansion
-(``expand_symmetric``) against the JAX package's host finish
-(``gossamer_tpu.ops.count._host_merge`` / ``_expand_symmetric``) and a
-``np.unique`` sum, with int64 counts past 2^31 and 2^32, the engine's
-choice of side by the cap, and ``graph.build.build_graph`` against the
-JAX one.  Keys and counts must be equal.
+"""The narrow engine's finish on the device, run here on CPU tensors: the
+device merge of spilled runs (``merge_runs``), the host merge
+(``transfer.host_merge``) and the device expansion (``expand_symmetric``)
+against the JAX package's host finish (``gossamer_tpu.ops.count._host_merge``
+/ ``_expand_symmetric``) and a ``np.unique`` sum, with int64 counts past
+2^31 and 2^32, the engine's choice of side by the cap, and
+``graph.build.build_graph`` against the JAX one.  Keys and counts must be
+equal.
 """
 
 import numpy as np
 import pytest
 import torch
 
-import jax.numpy as jnp
 from gossamer_tpu.graph.build import build_graph as jax_build_graph
 from gossamer_tpu.io.readers import Read as JaxRead
-from gossamer_tpu.ops import engine as JE
 from gossamer_tpu.ops.count import _expand_symmetric, _host_merge
-from gossamer_tpu_torch.convert import spectrum_from_planes
 from gossamer_tpu_torch.graph.build import build_graph
 from gossamer_tpu_torch.io.readers import Read
 from gossamer_tpu_torch.ops import engine as E
 from gossamer_tpu_torch.ops.canon import canon_value, rc
 from gossamer_tpu_torch.ops.fold import SENT
+from gossamer_tpu_torch.ops.transfer import host_merge
 
 CPU = torch.device("cpu")
 RHO = 26
@@ -51,15 +49,6 @@ def _spectrum(keys, counts, cap):
             torch.cat([counts, torch.zeros(pad, dtype=torch.int64)]))
 
 
-def _planes(keys, counts):
-    k = keys.numpy()
-    sent = k == SENT
-    return (jnp.asarray(np.where(sent, 0xFFFFFFFF, k >> 32).astype(np.uint32)),
-            jnp.asarray(np.where(sent, 0xFFFFFFFF, k & 0xFFFFFFFF)
-                        .astype(np.uint32)),
-            jnp.asarray(counts.numpy().astype(np.uint32)))
-
-
 def _jax_merge(a, b):
     """The JAX package's host merge of two ``(lo u64, c i64)`` runs."""
     lo, _hi, c = _host_merge((a[0], np.zeros_like(a[0]), a[1]),
@@ -77,50 +66,6 @@ def _unique_sum(runs):
     return keys, c
 
 
-def _live_equal(got, want_planes):
-    """Equal live lanes and ``live``.  Past the cap both only have to pass
-    it: the JAX ``live`` then also counts the sentinel group the crop
-    lost (``_sort_count_compact``), the port's counts keys alone."""
-    keys, counts, live = got
-    want = spectrum_from_planes(*map(np.asarray, want_planes[:3]), CPU)
-    n = int(want_planes[3])
-    cap = keys.numel()
-    if n <= cap:
-        assert int(live) == n
-    else:
-        assert cap < int(live) <= n
-        n = cap
-    assert torch.equal(keys[:n], want[0][:n])
-    assert torch.equal(counts[:n], want[1][:n])
-
-
-def test_expand_step_matches_jax():
-    rng = np.random.default_rng(1)
-    keys = _classes(rng, 300)
-    counts = torch.from_numpy(rng.integers(1, 1 << 31, keys.numel()))
-    pal = rc(keys, RHO) == keys
-    counts[pal.nonzero()[0]] = (1 << 31) + 5  # doubles past 2^32: mod 2^32
-    spec = _spectrum(keys, counts, 512)
-    got = E.expand_step(*spec, RHO)
-    assert got[0].numel() == 1024
-    _live_equal(got, JE.expand_step(*_planes(*spec), RHO))
-    i = int(pal.nonzero()[0])
-    j = int((got[0] == keys[i]).nonzero()[0])
-    assert int(got[1][j]) == 10  # 2 * (2^31 + 5) mod 2^32
-
-
-def test_spectra_merge_matches_jax():
-    rng = np.random.default_rng(2)
-    a, b = _classes(rng, 400), _classes(rng, 300)
-    b = torch.unique(torch.cat([b, a[::3]]))  # keys in both
-    ca = torch.from_numpy(rng.integers(1, 1 << 32, a.numel()))
-    cb = torch.from_numpy(rng.integers(1, 1 << 32, b.numel()))
-    sa, sb = _spectrum(a, ca, 512), _spectrum(b, cb, 512)
-    for cap in (1024, 600):  # 600: the crop loses keys; live counts them
-        got = E.spectra_merge(*sa, *sb, cap)
-        _live_equal(got, JE.spectra_merge(*_planes(*sa), *_planes(*sb), cap))
-
-
 def test_merge_runs_matches_host_past_2_32():
     rng = np.random.default_rng(3)
     a, b = _classes(rng, 500), _classes(rng, 200)
@@ -136,7 +81,7 @@ def test_merge_runs_matches_host_past_2_32():
     for want in (_jax_merge(*runs), _unique_sum(runs)):
         assert np.array_equal(keys.numpy().view(np.uint64), want[0])
         assert np.array_equal(counts.numpy(), want[1])
-    host = E._host_merge(*runs[0], *runs[1])  # the port's host side
+    host = host_merge(runs[0], runs[1])  # the port's host side
     assert np.array_equal(host[0], want[0]) and np.array_equal(host[1], want[1])
     assert int(counts[int((keys == both).nonzero()[0])]) == (1 << 33) - 10
     empty = torch.zeros(0, dtype=torch.int64)

@@ -1,6 +1,6 @@
-"""Pulls from the card to host memory: ``ops/engine.py`` ``_planes_to_host``
-(and ``_to_host``, ``_run_to_host``, ``_pull_planes`` over it),
-``ops/engine_wide.py`` ``u64_from_lanes`` and ``_pull``.
+"""Pulls from the card to host memory: ``ops/transfer.py`` ``planes_to_host``
+(and ``to_host``, ``run_to_host`` and ``ops/engine.py`` ``_pull_planes``
+over it), ``ops/engine_wide.py`` ``u64_from_lanes`` and ``_pull``.
 
 On the CPU: a CPU tensor comes back as its ``.numpy()``, counted under
 ``#d2h_bytes`` and not ``#d2h_pinned_bytes``; the carving of one block
@@ -23,6 +23,7 @@ from gossamer_tpu_torch.io.readers import Read
 from gossamer_tpu_torch.io.stream import flat_code_chunks
 from gossamer_tpu_torch.ops import engine as E
 from gossamer_tpu_torch.ops import engine_wide as EW
+from gossamer_tpu_torch.ops import transfer as T
 from gossamer_tpu_torch.ops.fold import SENT
 from gossamer_tpu_torch.utils import profile
 
@@ -73,7 +74,7 @@ def counters() -> dict:
 @pytest.mark.parametrize("dtype", DTYPES, ids=str)
 def test_cpu_pull_is_the_tensors_numpy(dtype, shape):
     t = sample(dtype, shape)
-    got = E._to_host(t)
+    got = T.to_host(t)
     want = t.numpy()
     assert got.dtype == want.dtype and got.shape == want.shape
     assert np.array_equal(got, want)
@@ -82,8 +83,8 @@ def test_cpu_pull_is_the_tensors_numpy(dtype, shape):
 
 def test_cpu_pull_counts_no_pinned_bytes():
     ts = [sample(d, seed=i) for i, d in enumerate(DTYPES)]
-    E._to_host(ts[0])
-    E._planes_to_host(*ts[1:])
+    T.to_host(ts[0])
+    T.planes_to_host(*ts[1:])
     assert counters() == {"#d2h_bytes": sum(t.nbytes for t in ts)}
     assert "to_host" in profile.totals()
 
@@ -93,14 +94,14 @@ def test_cpu_pull_counts_no_pinned_bytes():
 def test_carve_gives_aligned_disjoint_views(sizes):
     dtypes = [DTYPES[i % len(DTYPES)] for i in range(len(sizes))]
     ts = [sample(d, (n,), seed=i) for i, (d, n) in enumerate(zip(dtypes, sizes))]
-    size = sum(E._aligned(t.nbytes) for t in ts)
+    size = sum(T.aligned(t.nbytes) for t in ts)
     block = torch.zeros(size, dtype=torch.uint8)
-    views = E._carve(block, ts)
+    views = T.carve(block, ts)
     ends = []
     for v, t in zip(views, ts):
         assert v.dtype == t.dtype and v.shape == t.shape
         start = v.storage_offset() * v.element_size()
-        assert start % E._ALIGN == 0 and start + t.nbytes <= size
+        assert start % T.ALIGN == 0 and start + t.nbytes <= size
         ends.append((start, start + t.nbytes))
         v.copy_(t)
     ends.sort()
@@ -210,7 +211,7 @@ def test_cpu_finish_gives_the_edges_and_no_pinned_bytes(kind):
 @pytest.mark.parametrize("dtype", DTYPES, ids=str)
 def test_pull_lands_in_pinned_memory(cuda_device, dtype):
     t = sample(dtype, (1 << 20,)).to(cuda_device)
-    got = E._to_host(t)
+    got = T.to_host(t)
     assert base_tensor(got).is_pinned()
     assert got.dtype == t.cpu().numpy().dtype
     assert np.array_equal(got, t.cpu().numpy())
@@ -220,7 +221,7 @@ def test_pull_lands_in_pinned_memory(cuda_device, dtype):
 @pytest.mark.cuda
 def test_pull_is_a_copy_of_its_moment(cuda_device):
     t = torch.arange(1 << 22, dtype=torch.int64, device=cuda_device)
-    got = E._to_host(t)
+    got = T.to_host(t)
     t.mul_(3)  # queued after the pull
     torch.cuda.synchronize()
     assert np.array_equal(got, np.arange(1 << 22))
@@ -230,12 +231,12 @@ def test_pull_is_a_copy_of_its_moment(cuda_device):
 def test_two_pulls_kept_alive_do_not_alias(cuda_device):
     a = torch.full((1 << 22,), 1, dtype=torch.int64, device=cuda_device)
     b = torch.full((1 << 22,), 2, dtype=torch.int64, device=cuda_device)
-    ha = E._to_host(a)
-    hb = E._to_host(b)
+    ha = T.to_host(a)
+    hb = T.to_host(b)
     assert not np.shares_memory(ha, hb)
     assert (ha == 1).all() and (hb == 2).all()
     del hb
-    hc = E._to_host(a * 5)  # may take hb's block again, never ha's
+    hc = T.to_host(a * 5)  # may take hb's block again, never ha's
     assert not np.shares_memory(ha, hc)
     assert (ha == 1).all() and (hc == 5).all()
 
@@ -245,7 +246,7 @@ def test_run_pull_equals_per_plane_copies(cuda_device):
     rng = np.random.default_rng(11)
     keys = torch.from_numpy(np.sort(rng.integers(0, 1 << 52, 1 << 20))).to(cuda_device)
     counts = torch.from_numpy(rng.integers(1, 1 << 40, 1 << 20)).to(cuda_device)
-    lo, c = E._run_to_host(keys, counts)
+    lo, c = T.run_to_host(keys, counts)
     assert np.array_equal(lo, keys.cpu().numpy().view(np.uint64))
     assert np.array_equal(c, counts.cpu().numpy())
     assert base_tensor(lo).is_pinned() and base_tensor(c).is_pinned()
