@@ -137,10 +137,12 @@ def _build_graph_opts(p):
     _chunk_opts(p)
 
 
-def _counted_spectrum(ctx: Context, rho: int, *, both, canon):
+def _counted_spectrum(ctx: Context, rho: int, *, both, canon,
+                      graph_counts=False):
     """Count the input files: physical files straight from disk (the
     native reader when available), any other file factory through its
-    own reads."""
+    own reads.  ``graph_counts``: the counts as the graph file holds them
+    and their histogram besides (``ops.count.count_chunks``)."""
     from ..cli.framework import iter_reads
     from ..io.factory import PhysicalFileFactory
     from ..ops.count import count_rho_mers, count_rho_mers_files
@@ -157,7 +159,7 @@ def _counted_spectrum(ctx: Context, rho: int, *, both, canon):
     kw = _chunk_kwargs(ctx, rho)
     mon = UnboundedProgressMonitor(ctx.log, interval=1 << 26, unit="bases",
                                    label="counting")
-    kw.update(progress=mon.tick, log=ctx.log)
+    kw.update(progress=mon.tick, log=ctx.log, graph_counts=graph_counts)
     if isinstance(ctx.fac, PhysicalFileFactory):
         return count_rho_mers_files(
             [n for n, _ in files], rho, both_strands=both, canonical=canon,
@@ -173,10 +175,11 @@ def _build_graph_run(ctx: Context) -> None:
     if k > MAX_K:
         raise CommandError(f"kmer size {k} exceeds maximum {MAX_K}")
     t = Timer()
-    lo, hi, counts = _counted_spectrum(ctx, k + 1, both=True, canon=False)
+    lo, hi, counts, hist = _counted_spectrum(ctx, k + 1, both=True,
+                                             canon=False, graph_counts=True)
     with profile.context("build-graph/graph"):
-        g = Graph(k, lo, hi, counts.astype(np.int64), asymmetric=False)
-    g.write(ctx.opts.graph_out, ctx.fac)
+        g = Graph(k, lo, hi, counts, asymmetric=False)
+    g.write(ctx.opts.graph_out, ctx.fac, hist)
     ctx.log("info", f"build-graph: {g.count} edges in {t.check():.2f}s")
     if ctx.debug("dump-graph-build-stats") or ctx.debug("print-stats"):
         import json

@@ -40,7 +40,7 @@ def build_graph(
         reads, k + 1, both_strands=True, canonical=False, device=device,
         chunk=chunk, progress=progress, cap_entries=cap_entries,
     )
-    return Graph(k, lo, hi, counts.astype(np.int64), asymmetric=False)
+    return Graph(k, lo, hi, counts, asymmetric=False)
 
 
 def build_kmer_set(

@@ -94,12 +94,19 @@ class Graph:
         return len(self.lo)
 
     # -- persistence ----------------------------------------------------
-    def write(self, basename: str, fac: FileFactory) -> None:
+    def write(self, basename: str, fac: FileFactory, hist=None) -> None:
+        """The header, the key planes, the counts (uint32 where every count
+        is below 2^32) and the histogram sidecar.  ``hist``: the counts'
+        ``(mult, freq)`` as :func:`count_hist` gives them, made where the
+        counts were (build-graph's finish on the device); the counts are
+        then already the file's, and the write reads no max, casts nothing
+        and counts nothing."""
         with profile.context("graph/write"):
             counts = self.counts
-            top = int(counts.max()) if len(counts) else 0
-            if top < (1 << 32):
-                counts = counts.astype(np.uint32, copy=False)
+            if hist is None:
+                top = int(counts.max()) if len(counts) else 0
+                if top < (1 << 32):
+                    counts = counts.astype(np.uint32, copy=False)
             narrow = 2 * self.rho <= 64
             write_header(
                 fac,
@@ -120,12 +127,15 @@ class Graph:
             # histogram sidecar, reference format: "<multiplicity>\t<freq>\n"
             # ascending (src/Graph.cc:127-134)
             with profile.context("hist"):
-                # the file's uint32 counts are the quicker to count; they
-                # are the graph's own unless one of those is negative
-                if (len(counts) and self.counts.dtype.kind == "i"
-                        and int(self.counts.min()) < 0):
-                    counts = self.counts
-                mult, freq = count_hist(counts, top)
+                if hist is None:
+                    # the file's uint32 counts are the quicker to count;
+                    # they are the graph's own unless one of those is
+                    # negative
+                    if (len(counts) and self.counts.dtype.kind == "i"
+                            and int(self.counts.min()) < 0):
+                        counts = self.counts
+                    hist = count_hist(counts, top)
+                mult, freq = hist
                 fac.write_text(basename + "-counts-hist.txt", "".join(
                     f"{m}\t{c}\n" for m, c in zip(mult.tolist(), freq.tolist())))
 

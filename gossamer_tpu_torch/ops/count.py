@@ -127,6 +127,7 @@ def count_chunks(
     fold: bool = True,
     batch: int = 8,
     mesh=None,
+    graph_counts: bool = False,
 ):
     """Count over chunks of ``chunk`` windows -> sorted (lo, hi, counts)
     host arrays.  A chunk is a ``(words, inval)`` packed tuple (narrow keys,
@@ -144,16 +145,22 @@ def count_chunks(
     flush.  ``n_devices > 1`` counts on a mesh of that many shards
     (:func:`..parallel.mesh.data_mesh` on ``device``), as does a ``mesh``
     given; ``batch`` and ``fold`` then do not apply.
+    ``graph_counts`` (build-graph's write) adds a fourth item: the
+    counts' histogram ``(mult, freq)`` where the one-device expansion made
+    it on the device, its counts then those the graph file holds (the
+    engines' ``finish_expanded(graph_counts=True)`` and ``hist``); else
+    None.
     """
     _check_supported(rho)
     mode = "ref" if canonical else ("value" if both_strands else "plain")
     chunks = profile.iterate("count/read", chunks)  # the reader's next()
     if n_devices > 1 or mesh is not None:
-        return _count_sharded(chunks, rho, mode=mode, expand=both_strands,
-                              device=device,
-                              chunk=chunk, cap_entries=cap_entries,
-                              progress=progress, log=log,
-                              n_devices=n_devices, mesh=mesh)
+        out = _count_sharded(chunks, rho, mode=mode, expand=both_strands,
+                             device=device,
+                             chunk=chunk, cap_entries=cap_entries,
+                             progress=progress, log=log,
+                             n_devices=n_devices, mesh=mesh)
+        return (*out, None) if graph_counts else out
     narrow = narrow_keys(rho)
     if chunk < 0:
         raise ValueError(f"negative chunk size {chunk}")
@@ -189,10 +196,11 @@ def count_chunks(
             progress(n_chunks * lanes)
     if eng is None:
         z = np.zeros(0, dtype=U64)
-        return z, z.copy(), np.zeros(0, dtype=np.int64)
+        out = z, z.copy(), np.zeros(0, dtype=np.int64)
+        return (*out, None) if graph_counts else out
     stream = time.perf_counter() - t0
     with profile.context("count/finish"):
-        out = eng.finish_expanded() if both_strands else eng.finish()
+        out = eng.finish_expanded(graph_counts) if both_strands else eng.finish()
     if log is not None:
         phases = {"stream": stream, **eng.phases}
         finish = "; ".join(getattr(eng, "finish_log", ()))
@@ -201,7 +209,7 @@ def count_chunks(
                     + (f"pulls: {pulls}, " if pulls else "")
                     + (f"finish: {finish}, " if finish else "")
                     + f"phases (s) {json.dumps(phases)}")
-    return out
+    return (*out, eng.hist) if graph_counts else out
 
 
 def count_rho_mers(reads: Iterable[Read], rho: int, *, chunk: int = 1 << 22,

@@ -44,9 +44,9 @@ from .canon import MODES, canonicalize, rc
 from .fold import SENT, merge_fold, merge_fold_reference
 from .kmerize import kmerize_packed, kmerize_planes
 from .merge import merge_sorted
-from .transfer import (host_merge, merge_all, planes_to_host, read_live,
-                       run_to_device, run_to_host, stack_to_device, sync,
-                       to_host)
+from .transfer import (file_counts, file_counts_host, host_merge, merge_all,
+                       planes_to_host, read_live, run_to_device, run_to_host,
+                       stack_to_device, sync, to_host)
 
 
 def narrow_keys(rho: int) -> bool:
@@ -257,6 +257,7 @@ class SpectrumEngine:
         self.phases: dict[str, float] = {}  # seconds of the last finish
         self.finish_log: list[str] = []  # where each finish step ran
         self.pulls: list[str] = []  # each spectrum pulled: keys, format
+        self.hist = None  # finish_expanded's (mult, freq), where it made one
 
     def _route(self, packed: bool) -> None:
         if self.packed is None:
@@ -416,14 +417,19 @@ class SpectrumEngine:
         lo, c = run_to_host(*run) if on_device else run
         return lo, np.zeros_like(lo), c
 
-    def finish_expanded(self):
+    def finish_expanded(self, graph_counts: bool = False):
         """Finish and expand to the symmetric fwd+rc edge spectrum
         (build-graph semantics; mode 'value' or 'ref'): on the device when
         twice the lanes fit the cap, else on the host
         (``ops.count._expand_symmetric``).  The phases' seconds are their
         scopes' (one clock reading each): ``flush_tail`` (the final
         flush), ``pull`` (the live spectrum and the merges of spilled
-        runs), ``expand`` (the expansion and its copy to the host)."""
+        runs), ``expand`` (the expansion and its copy to the host).
+
+        ``graph_counts`` (build-graph's write): an expansion on the device
+        pulls the counts as the graph file holds them, and their histogram
+        into :attr:`hist` (:func:`.transfer.file_counts`); the host's
+        expansion gives int64 counts and leaves :attr:`hist` None."""
         from .count import _expand_symmetric
 
         with profile.context("flush_tail", clock=True) as tail:
@@ -431,6 +437,7 @@ class SpectrumEngine:
             self.finish_log = []
             sync(self.device)
         self.phases = {"flush_tail": tail.seconds}
+        self.hist = None
         if self.spec is None:
             z = np.zeros(0, np.uint64)
             return z, z.copy(), np.zeros(0, np.int64)
@@ -443,7 +450,15 @@ class SpectrumEngine:
         with profile.context("expand", clock=True) as expand:
             self.finish_log.append(f"expansion of {len(run[0]):,} keys "
                                    f"{self._side(on_device)}")
-            if on_device:
+            if on_device and graph_counts:
+                keys, c = expand_symmetric(*run, self.rho)
+                del run  # the classes go before the counts are narrowed
+                c, hist = file_counts(c)
+                lo, c, *hist = planes_to_host(keys, c, *hist)
+                lo = lo.view(np.uint64)
+                c, self.hist = file_counts_host(c, hist)
+                out = lo, np.zeros_like(lo), c
+            elif on_device:
                 lo, c = run_to_host(*expand_symmetric(*run, self.rho))
                 out = lo, np.zeros_like(lo), c
             else:

@@ -44,8 +44,8 @@ import torch.nn.functional as F
 from ..utils import profile
 from .canon import FNV_OFFSET, M32, MODES, _fnv_step, _rev2_u32
 from .kmerize import windows_without
-from .transfer import (host_merge, merge_all, planes_to_host, read_live, sync,
-                       to_device)
+from .transfer import (file_counts, file_counts_host, host_merge, merge_all,
+                       planes_to_host, read_live, sync, to_device)
 
 SENT = (1 << 63) - 1
 TOP = -(1 << 63)  # the int64 whose only set bit is bit 63
@@ -320,6 +320,7 @@ class SpectrumEngineWide:
         self._checked_live = 0
         self._lanes_since_check = 0
         self.phases: dict[str, float] = {}  # seconds of the last finish
+        self.hist = None  # finish_expanded's (mult, freq), where it made one
 
     def add_chunk(self, codes: np.ndarray) -> None:
         """Queue one raw code chunk (``io.stream.flat_code_chunks``)."""
@@ -447,18 +448,24 @@ class SpectrumEngineWide:
             return self._merged_host()
         return self._pull(self.spec, self._live())
 
-    def finish_expanded(self):
+    def finish_expanded(self, graph_counts: bool = False):
         """Finish and expand to the symmetric fwd+rc edge spectrum
         (build-graph semantics; mode 'value'): on the device when nothing
         spilled, over the live lanes only, on the host over the merged runs
         otherwise.  The phases' seconds are their scopes' (one clock reading
         each): ``flush_tail`` (the final flush), ``expand`` and ``pull``
         (the copy to the host; on the host side, the merges before the
-        expansion)."""
+        expansion).
+
+        ``graph_counts`` (build-graph's write): an expansion on the device
+        pulls the counts as the graph file holds them, and their histogram
+        into :attr:`hist` (:func:`.transfer.file_counts`); the host's
+        expansion gives int64 counts and leaves :attr:`hist` None."""
         with profile.context("flush_tail", clock=True) as tail:
             self._flush(final=True)
             sync(self.device)
         self.phases = {"flush_tail": tail.seconds}
+        self.hist = None
         if self.spec is None:
             z = np.zeros(0, np.uint64)
             return z, z.copy(), np.zeros(0, np.int64)
@@ -485,6 +492,13 @@ class SpectrumEngineWide:
             n_out = read_live(live)
         self.phases["expand"] = expand.seconds
         with profile.context("pull", clock=True) as pull:
-            out = self._pull(spec, n_out)
+            if graph_counts:
+                hi, lo, c = (t[:n_out] for t in spec)
+                c, hist = file_counts(c)
+                lo, hi, c, *hist = u64_from_lanes(hi, lo, c, *hist)
+                c, self.hist = file_counts_host(c, hist)
+                out = lo, hi, c
+            else:
+                out = self._pull(spec, n_out)
         self.phases["pull"] = pull.seconds
         return out

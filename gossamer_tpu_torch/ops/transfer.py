@@ -13,6 +13,10 @@ into aligned views, the host waiting once (scope ``to_host``, counters
 A finish merges its sorted runs two at a time, smallest first
 (:func:`merge_all`); on the host the merge of two runs is
 :func:`host_merge`, over one key plane (narrow keys) or two (wide keys).
+
+A graph's counts leave the device as the graph file holds them
+(:func:`file_counts`, then :func:`file_counts_host`): narrowed to
+uint32 where they fit, with their histogram counted on the device.
 """
 
 from __future__ import annotations
@@ -94,6 +98,47 @@ def to_host(t: torch.Tensor) -> np.ndarray:
 def run_to_host(keys: torch.Tensor, counts: torch.Tensor):
     k, c = planes_to_host(keys, counts)
     return k.view(np.uint64), c
+
+
+# ------------------------------------------------------- a graph's counts
+def file_counts(c: torch.Tensor):
+    """A graph's int64 counts on the device -> ``(counts, hist)`` on the
+    device, for one pull with the keys: what ``Graph.write`` and
+    ``count_hist`` would make of them on the host.
+
+    ``counts`` is the low 32 bits of each count as int32 (the file's
+    uint32) where every count lies in ``[0, 2^32)``, else ``c`` itself
+    (the file then holds int64).  ``hist`` is ``[mult, freq]``, the
+    nonzero bins of ``torch.bincount`` (counter ``#hist_card``), where
+    every count lies in ``[0, min(max(2^16, n), 2^31))`` for ``n`` counts:
+    ``count_hist``'s counted rule, narrowed to what int32 holds.  Else
+    ``[]``, and the host counts them.  The host reads one min and max."""
+    if c.numel() == 0:
+        return c.new_zeros(0, dtype=torch.int32), [c.new_zeros(0)] * 2
+    with profile.context("sync"):
+        low, top = torch.stack(torch.aminmax(c)).tolist()
+    if low < 0 or top >= 1 << 32:
+        return c, []
+    # the even int32 words of a little-endian int64 are its low words
+    c32 = c.contiguous().view(torch.int32)[::2].contiguous()
+    if top >= min(max(1 << 16, c.numel()), 1 << 31):
+        return c32, []
+    profile.count("hist_card", 1)
+    bins = torch.bincount(c32)
+    mult = torch.nonzero(bins).squeeze(1)
+    return c32, [mult, bins[mult]]
+
+
+def file_counts_host(c: np.ndarray, hist: list):
+    """The pulled arrays of :func:`file_counts` -> ``(counts, (mult, freq)
+    or None)``: int32 bits as the file's uint32, the multiplicities in the
+    counts' dtype, as ``count_hist`` gives them (int64 for no counts)."""
+    if c.dtype == np.int32:
+        c = c.view(np.uint32)
+    if not hist:
+        return c, None
+    mult, freq = hist
+    return c, (mult.astype(c.dtype) if len(c) else mult, freq)
 
 
 # ------------------------------------------------------------------- waits
