@@ -167,6 +167,15 @@ def _flat_batch(buf: list[np.ndarray], k: int, window: int):
     return flat, starts
 
 
+def _valid_windows(flat: np.ndarray, k: int) -> int:
+    """Windows of ``flat`` (a batch of :func:`_flat_batch`) whose ``k`` codes
+    are all bases: over the runs between non-bases (separators, padding,
+    N), each run's length less ``k - 1``."""
+    cut = np.concatenate([[-1], np.flatnonzero(flat >= 4), [len(flat)]])
+    runs = np.diff(cut) - k
+    return int(runs[runs > 0].sum())
+
+
 def _gather(out_dev, out_counts) -> np.ndarray:
     """Per-batch device results -> one host array (one copy at the end)."""
     if not out_dev:
@@ -187,7 +196,9 @@ def classify_codes_device(codes_list, set_E: torch.Tensor, k: int,
     a batch; a batch of reads of one length and no invalid base takes the
     periodic engine, any other the packed one (the flat-code engine only
     when the window is not a multiple of 16).  Per-batch results stay on
-    the device; one copy to the host at the end.
+    the device; one copy to the host at the end.  While profiling is on,
+    the counters ``#join_lanes`` (query lanes launched, padding included)
+    and ``#join_windows`` (the valid windows among them) add up each batch.
     """
     from ..io.stream import pack_chunk
 
@@ -214,6 +225,9 @@ def classify_codes_device(codes_list, set_E: torch.Tensor, k: int,
                            n_reads, L + 1)[:, :L] < 4).all()))
             if packed_ok:
                 words, inval = pack_chunk(flat, k, window)
+            if profile.enabled():
+                profile.count("join_lanes", window)
+                profile.count("join_windows", _valid_windows(flat, k))
         with profile.context("classify/launch"):
             if uniform:
                 # one length and no invalid base: position masks replace

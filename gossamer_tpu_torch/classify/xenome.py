@@ -242,11 +242,20 @@ def classify_pair_batches(
     n_devices: int = 1, mesh=None,
 ) -> Iterator[tuple[list[tuple[Read, Read]], np.ndarray]]:
     """:func:`classify_read_batches` of read pairs: a pair's blrg is the OR
-    of its mates'."""
+    of its mates', under the scope ``classify/mates``; ``batch_reads`` pairs
+    a batch, so each join takes twice as many reads.  While profiling is on
+    the counters ``#pairs`` and ``#pairs_split`` (pairs whose mates' own
+    blrg differ: the pair rule decided their class) add up each batch."""
     clf = _classifier(ann, passes, device, n_devices, mesh)
     for buf in _read_batches(pairs, batch_reads):
         blrg = clf.blrg(_encode(r for pr in buf for r in pr))
-        yield buf, blrg[0::2] | blrg[1::2]
+        with profile.context("classify/mates"):
+            mate1, mate2 = blrg[0::2], blrg[1::2]
+            if profile.enabled():
+                profile.count("pairs", len(buf))
+                profile.count("pairs_split", int(np.count_nonzero(mate1 != mate2)))
+            pair = mate1 | mate2
+        yield buf, pair
 
 
 # -------------------------------------------------------------- reporting
