@@ -19,6 +19,7 @@ oracle.
 
 from __future__ import annotations
 
+import io
 from itertools import islice
 from typing import Iterable, Iterator
 
@@ -26,7 +27,7 @@ import numpy as np
 import torch
 
 from ..core import kmer as K
-from ..io.readers import Read
+from ..io.readers import END, START, Read, ReadBatch
 from ..utils import profile
 from .annotated_set import AnnotatedKmerSet
 
@@ -186,76 +187,85 @@ def _classifier(ann: AnnotatedKmerSet, passes: int, device, n_devices: int,
         return DeviceClassifier(ann_slices(ann, passes), device, mesh)
 
 
-def classify_reads(reads: Iterable[Read], ann: AnnotatedKmerSet,
+def classify_reads(reads: Iterable[Read], ann: AnnotatedKmerSet, *,
+                   batch_reads: int = BATCH_READS,
                    **kw) -> Iterator[tuple[Read, int]]:
-    """Yield (read, blrg) preserving input order (the keywords of
-    :func:`classify_read_batches`)."""
-    for buf, blrg in classify_read_batches(reads, ann, **kw):
-        for rd, b in zip(buf, blrg.tolist()):
-            yield rd, b
+    """Yield (read, blrg) preserving input order, ``batch_reads`` reads a
+    batch (the other keywords of :func:`classify_read_batches`)."""
+    batches = (ReadBatch.of_reads(buf) for buf in _lists(reads, batch_reads))
+    for batch, blrg in classify_read_batches(batches, ann, **kw):
+        yield from zip(batch.reads(), blrg.tolist())
+
+
+def _lists(items, n: int):
+    """``items`` in lists of ``n``, the last one shorter."""
+    it = iter(items)
+    return iter(lambda: list(islice(it, max(1, n))), [])
 
 
 def classify_read_batches(
-    reads: Iterable[Read], ann: AnnotatedKmerSet, *, device: torch.device,
-    batch_reads: int = BATCH_READS, passes: int = 1, n_devices: int = 1,
-    mesh=None,
-) -> Iterator[tuple[list[Read], np.ndarray]]:
-    """Yield (reads, their blrg as uint8) a batch of ``batch_reads`` at a
-    time, in input order.  ``n_devices`` above 1, or a ``mesh``, shards the
-    set of narrow keys over a mesh: the multipass decomposition run in
-    space instead of time."""
+    batches: Iterable[ReadBatch], ann: AnnotatedKmerSet, *,
+    device: torch.device, passes: int = 1, n_devices: int = 1, mesh=None,
+) -> Iterator[tuple[ReadBatch, np.ndarray]]:
+    """Yield (batch, its reads' blrg as uint8) for each batch, in input
+    order.  ``n_devices`` above 1, or a ``mesh``, shards the set of narrow
+    keys over a mesh: the multipass decomposition run in space instead of
+    time."""
     clf = _classifier(ann, passes, device, n_devices, mesh)
-    for buf in _read_batches(reads, batch_reads):
-        yield buf, clf.blrg(_encode(buf))
+    for batch in _read_batches(batches):
+        yield batch, clf.blrg(_encode(batch.seqs))
 
 
-def _read_batches(reads, n: int):
-    """``reads`` in lists of ``n`` (the last one shorter), each list's
-    parse timed as one scope ``classify/read``: a clock reading a read
-    would cost more than a tenth of the call."""
-    it = iter(reads)
+def _read_batches(batches):
+    """``batches`` with each one's parse timed as one scope
+    ``classify/read``: a clock reading a read would cost more than a tenth
+    of the call."""
+    it = iter(batches)
     while True:
         with profile.context("classify/read"):
-            buf = list(islice(it, max(1, n)))
-        if not buf:
+            batch = next(it, None)
+        if batch is None:
             return
-        yield buf
+        yield batch
 
 
-def _encode(reads) -> list[np.ndarray]:
+def _encode(seqs) -> list[np.ndarray]:
     with profile.context("classify/encode"):
-        return [K.encode_bases(r.seq) for r in reads]
+        return [K.encode_bases(s) for s in seqs]
 
 
 def classify_pairs(pairs: Iterable[tuple[Read, Read]], ann: AnnotatedKmerSet,
+                   *, batch_reads: int = BATCH_READS,
                    **kw) -> Iterator[tuple[Read, Read, int]]:
-    """Paired classification: blrg = OR of the mates' blrgs (the keywords
-    of :func:`classify_read_batches`)."""
-    for buf, blrg in classify_pair_batches(pairs, ann, **kw):
-        for (a, b), x in zip(buf, blrg.tolist()):
-            yield a, b, x
+    """Paired classification: blrg = OR of the mates' blrgs, ``batch_reads``
+    pairs a batch (the other keywords of :func:`classify_read_batches`)."""
+    batches = ((ReadBatch.of_reads([a for a, _ in buf]),
+                ReadBatch.of_reads([b for _, b in buf]))
+               for buf in _lists(pairs, batch_reads))
+    for (lhs, rhs), blrg in classify_pair_batches(batches, ann, **kw):
+        yield from zip(lhs.reads(), rhs.reads(), blrg.tolist())
 
 
 def classify_pair_batches(
-    pairs: Iterable[tuple[Read, Read]], ann: AnnotatedKmerSet, *,
-    device: torch.device, batch_reads: int = BATCH_READS, passes: int = 1,
-    n_devices: int = 1, mesh=None,
-) -> Iterator[tuple[list[tuple[Read, Read]], np.ndarray]]:
-    """:func:`classify_read_batches` of read pairs: a pair's blrg is the OR
-    of its mates', under the scope ``classify/mates``; ``batch_reads`` pairs
-    a batch, so each join takes twice as many reads.  While profiling is on
-    the counters ``#pairs`` and ``#pairs_split`` (pairs whose mates' own
-    blrg differ: the pair rule decided their class) add up each batch."""
+    batches: Iterable[tuple[ReadBatch, ReadBatch]], ann: AnnotatedKmerSet, *,
+    device: torch.device, passes: int = 1, n_devices: int = 1, mesh=None,
+) -> Iterator[tuple[tuple[ReadBatch, ReadBatch], np.ndarray]]:
+    """:func:`classify_read_batches` of batches of mates, mate 1's and mate
+    2's of the same pairs: a pair's blrg is the OR of its mates', under the
+    scope ``classify/mates``; each join takes both mates, interleaved.
+    While profiling is on the counters ``#pairs`` and ``#pairs_split``
+    (pairs whose mates' own blrg differ: the pair rule decided their class)
+    add up each batch."""
     clf = _classifier(ann, passes, device, n_devices, mesh)
-    for buf in _read_batches(pairs, batch_reads):
-        blrg = clf.blrg(_encode(r for pr in buf for r in pr))
+    for lhs, rhs in _read_batches(batches):
+        blrg = clf.blrg(_encode(s for pr in zip(lhs.seqs, rhs.seqs) for s in pr))
         with profile.context("classify/mates"):
             mate1, mate2 = blrg[0::2], blrg[1::2]
             if profile.enabled():
-                profile.count("pairs", len(buf))
+                profile.count("pairs", len(lhs))
                 profile.count("pairs_split", int(np.count_nonzero(mate1 != mate2)))
             pair = mate1 | mate2
-        yield buf, pair
+        yield (lhs, rhs), pair
 
 
 # -------------------------------------------------------------- reporting
@@ -265,6 +275,47 @@ def print_read(out, rd: Read) -> None:
         out.write(f"@{rd.label}\n{rd.seq.decode()}\n+\n{rd.qual.decode()}\n")
     else:
         out.write(f">{rd.label}\n{rd.seq.decode()}\n")
+
+
+def write_batch(outs: list, batch: ReadBatch, which: np.ndarray) -> None:
+    """Each record of ``batch`` to the binary file ``outs[which[i]]``, in
+    input order within each file, one write a file: a canonical record
+    (:class:`..io.readers.ReadBatch`: its bytes are what :func:`print_read`
+    writes) as a slice of the batch's buffer, a run of them that lie
+    together in it as one slice; any other record as :func:`print_read`
+    formats it.  While profiling is on the counters ``#write_raw`` and
+    ``#write_formatted`` count the records written each way."""
+    if profile.enabled():
+        raw = 0 if batch.buf is None else int(np.count_nonzero(batch.canonical))
+        profile.count("write_raw", raw)
+        profile.count("write_formatted", len(batch) - raw)
+    for k, out in enumerate(outs):
+        idx = np.flatnonzero(which == k)
+        if not len(idx):
+            continue
+        if batch.buf is None:
+            out.write(b"".join([_formatted(batch.read(i)) for i in idx.tolist()]))
+            continue
+        s, e, ok = batch.off[START, idx], batch.off[END, idx], batch.canonical[idx]
+        # a run goes on while the next record is canonical too and starts
+        # where this one ends
+        runs = np.flatnonzero(np.concatenate(
+            ([True], ~(ok[1:] & ok[:-1] & (s[1:] == e[:-1])))))
+        lasts = np.append(runs[1:], len(idx)) - 1
+        mv = memoryview(batch.buf)
+        pieces = [mv[a:b] for a, b in zip(s[runs].tolist(), e[lasts].tolist())]
+        for j in np.flatnonzero(~ok[runs]).tolist():  # a run of one record
+            pieces[j] = _formatted(batch.read(int(idx[runs[j]])))
+        out.write(b"".join(pieces))
+
+
+_TEXT_ENCODING = io.TextIOWrapper(io.BytesIO()).encoding  # what print_read's files use
+
+
+def _formatted(rd: Read) -> bytes:
+    text = io.StringIO()
+    print_read(text, rd)
+    return text.getvalue().encode(_TEXT_ENCODING)
 
 
 def fmt6(x: float) -> str:

@@ -25,16 +25,17 @@ from ..classify.annotated_set import (
     merge_and_annotate,
 )
 from ..classify.xenome import (
+    BATCH_READS,
     OUT_CLASS,
     classify_pair_batches,
     classify_read_batches,
     out_filename,
-    print_read,
     print_stats,
+    write_batch,
 )
 from ..cli.framework import App, Command, CommandError, Context, add_input_options, gather_read_files
 from ..graph.build import build_kmer_set
-from ..io.readers import read_file, read_pair_files
+from ..io.readers import read_batches, read_file, read_pair_batches
 from ..utils import profile
 from ..utils.logging import Timer
 
@@ -122,61 +123,42 @@ def _classify_run(ctx: Context) -> None:
     counts = np.zeros(16, dtype=np.int64)
     write = not o.dont_write_reads
 
+    kw = dict(device=ctx.device, passes=passes, n_devices=n_devices)
     if o.pairs:
         if len(files) % 2 != 0:
             raise CommandError("--pairs requires an even number of input files")
-        lhs_files = [n for n, _ in files[0::2]]
-        rhs_files = [n for n, _ in files[1::2]]
-        outs = {}
-        if write:
-            for cls in ("neither", "both", "ambiguous", o.graft_name, o.host_name):
-                for half in ("1", "2"):
-                    name = out_filename(o.output_filename_prefix, suffix, half, cls)
-                    outs[(cls, half)] = ctx.fac.open_write_text(name)
-                    ctx.log("info", f"writing to {name}")
-        try:
-            for buf, blrg in classify_pair_batches(
-                read_pair_files(lhs_files, rhs_files, ctx.fac), ann,
-                device=ctx.device, passes=passes, n_devices=n_devices,
-            ):
-                counts += np.bincount(blrg, minlength=16)
-                if write:
-                    with profile.context("xenome/write"):
-                        for (a, b), x in zip(buf, blrg.tolist()):
-                            cls = _cls_name(x, o.graft_name, o.host_name)
-                            print_read(outs[(cls, "1")], a)
-                            print_read(outs[(cls, "2")], b)
-        finally:
-            for f in outs.values():
-                f.close()
+        halves = ("1", "2")
+        batches = classify_pair_batches(read_pair_batches(
+            [n for n, _ in files[0::2]], [n for n, _ in files[1::2]],
+            BATCH_READS, ctx.fac), ann, **kw)
     else:
-        outs = {}
-        if write:
-            for cls in ("neither", "both", "ambiguous", o.graft_name, o.host_name):
-                name = out_filename(o.output_filename_prefix, suffix, "", cls)
-                outs[cls] = ctx.fac.open_write_text(name)
+        halves = ("",)
+        batches = (((batch,), blrg) for batch, blrg in classify_read_batches(
+            read_batches(files, BATCH_READS, ctx.fac), ann, **kw))
+    # each class's file, once a name (graft and host may name another class)
+    names = {c: {"lhs": o.graft_name, "rhs": o.host_name}.get(c, c)
+             for c in ("neither", "both", "ambiguous", "lhs", "rhs")}
+    slots = list(dict.fromkeys(names.values()))
+    slot_of = np.array([slots.index(names[c]) for c in OUT_CLASS], np.uint8)
+    outs = {half: [] for half in halves} if write else {}  # a file a slot
+    try:
+        for c in slots if write else ():
+            for half in halves:
+                name = out_filename(o.output_filename_prefix, suffix, half, c)
+                outs[half].append(ctx.fac.open_write(name))
                 ctx.log("info", f"writing to {name}")
-        try:
-            for buf, blrg in classify_read_batches(
-                (r for name, fmt in files for r in read_file(name, ctx.fac, fmt)),
-                ann, device=ctx.device, passes=passes, n_devices=n_devices,
-            ):
-                counts += np.bincount(blrg, minlength=16)
-                if write:
-                    with profile.context("xenome/write"):
-                        for rd, x in zip(buf, blrg.tolist()):
-                            cls = _cls_name(x, o.graft_name, o.host_name)
-                            print_read(outs[cls], rd)
-        finally:
-            for f in outs.values():
-                f.close()
+        for mates, blrg in batches:
+            counts += np.bincount(blrg, minlength=16)
+            if write:
+                with profile.context("xenome/write"):
+                    which = slot_of[blrg]
+                    for half, batch in zip(halves, mates):
+                        write_batch(outs[half], batch, which)
+    finally:
+        for f in (f for fs in outs.values() for f in fs):
+            f.close()
 
     print_stats(sys.stdout, counts, o.graft_name, o.host_name, o.dont_write_reads)
-
-
-def _cls_name(blrg: int, graft: str, host: str) -> str:
-    cls = OUT_CLASS[blrg]
-    return {"lhs": graft, "rhs": host}.get(cls, cls)
 
 
 def build_app() -> App:
