@@ -366,6 +366,7 @@ class SpectrumEngine:
             except NativeUnavailable:
                 self.host_runs.append(("raw", lo, c))
         self.spills += 1
+        profile.count("spill_runs", 1)
         if self.on_spill is not None:
             self.on_spill(self.spills, len(lo))
         self.spec = empty_spec(self.cap, self.device)
@@ -376,7 +377,9 @@ class SpectrumEngine:
     def _finish_runs(self, factor: int):
         """The spilled runs and the spectrum's live lanes as runs, on the
         device when ``factor`` times their lanes fit the cap, else on the
-        host -> ``(runs, on_device)``.  The cap-lane spectrum is freed."""
+        host -> ``(runs, on_device)``.  The cap-lane spectrum is freed.
+        Counts the lanes weighed, ``#finish_lanes``, and of them those
+        finished on the device, ``#finish_lanes_card`` (0 on the host)."""
         from ..io.native import decode_spill_run
 
         n_out = read_live(self.live_scalars[-1]) if self.live_scalars else 0
@@ -385,7 +388,10 @@ class SpectrumEngine:
             runs = [decode_spill_run(a, b) if kind == "eac" else (a, b)
                     for kind, a, b in self.host_runs]
         lanes = n_out + sum(len(r[0]) for r in runs)
-        if factor * lanes <= self.req_cap:
+        on_device = factor * lanes <= self.req_cap
+        profile.count("finish_lanes", lanes)
+        profile.count("finish_lanes_card", lanes if on_device else 0)
+        if on_device:
             live = tuple(t[:n_out].clone() for t in self.spec)
             self.spec = None
             return [run_to_device(*r, self.device) for r in runs] + [live], True
